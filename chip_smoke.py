@@ -7,11 +7,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
   1. device: a CUDA device is required; prints nvidia-smi's name and
      power limit;
   2. build: builds every kernel from livecell_tpu_torch/csrc with nvcc;
-  3. kernels: K1 (roi_weights) and K2 (roi_align_fwd) against their
-     plain PyTorch versions on the card at the serving shapes
-     (25 tiles, 56x76x256 map, K in {50, 256}, bf16 and f32), each
-     within its stated tolerance, timed with CUDA events; K2's library
-     yardstick (one three-operand torch.einsum) checked and timed too;
+  3. kernels: every kernel against its plain PyTorch version on the card,
+     each within its stated tolerance, timed with CUDA events and the
+     profiler: K1 (roi_weights) and K2 (roi_align_fwd) at the serving
+     shapes (25 tiles, 56x76x256 map, K in {50, 256}, bf16 and f32) and
+     at the training shape (32 images, K = 128, bf16); K4
+     (match_anchors, full and max-only) at the fixed mode's 32 images x
+     128 GT and the quirk mode's 1 x 4,096; K3 (roi_align_bwd, bf16 and
+     f32) at 32 x 128 and 1 x 128 ROIs; K2's and K3's library yardsticks
+     (one three-operand torch.einsum each) checked and timed too;
   4. serve: the full-width model (ResNet-18/CBAM/FPN-256 at 224x304,
      bf16, random weights from a seed) serves three requests through
      InferenceEngine.predict: (a) a 704x520 frame with the reference
@@ -20,11 +24,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      must show K1 and K2 ran once per forward (twice in (c));
   5. end to end: request (a)'s forward in f32 with roi_backend="kernel"
      and "plain", same weights, must agree (valid equal; boxes, scores
-     and mask probabilities within 1e-3).
+     and mask probabilities within 1e-3);
+  6. train: the full-width model with f32 master weights and bf16
+     compute takes 3 warm-up and 10 timed steps through train_epoch at
+     batch 32 from a pool of 128 synthetic tiles on the card, in (T1)
+     the reference's quirk mode and (T2) the flagship fixed mode
+     (heads_all_images, decode_proposals, mask_train_samples=64): finite
+     losses, and K1-K4 launched once per step each; one profiled step
+     per mode;
+  7. train end to end: one f32 step of T2 at batch 4 with the kernels
+     and with their plain versions: equal selections, losses and every
+     parameter's gradient within the stated tolerances;
+  8. checkpoint: the T2 model saved by train/checkpoint.py, loaded by
+     serve/app.py:load_model, serves a tile.
 
 Prints the kernels' JSON line, then as the last line
 {"ok": true, "device": {...}}. Writes nothing outside the checkout
-except the kernels' build directory inside the package.
+but a temporary checkpoint under $TMPDIR, removed at once; the kernels
+build into a directory inside the package.
 """
 
 from __future__ import annotations
@@ -72,22 +89,25 @@ def time_ms(fn, warmup=3, runs=21, calls=10) -> float:
 
 def kernel_ms(fn, kernel: str, calls=10) -> float:
     """Device time per launch of the CUDA kernel whose name contains
-    `kernel`, from torch.profiler (excludes the host's launch gaps)."""
+    `kernel`, from torch.profiler (excludes the host's launch gaps). A
+    profiler session on the H100 now and then records no kernel at all,
+    so up to three sessions are tried."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = [ev for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and kernel in ev.key]
-    if not rows:
-        raise AssertionError(f"profiler saw no {kernel}")
-    return sum(ev.self_device_time_total for ev in rows) / 1e3 / sum(
-        ev.count for ev in rows)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [ev for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA and kernel in ev.key]
+        if rows:
+            return sum(ev.self_device_time_total for ev in rows) / 1e3 / sum(
+                ev.count for ev in rows)
+    raise AssertionError(f"profiler saw no {kernel} in three sessions")
 
 
 def make_boxes(k: int, gen: torch.Generator) -> torch.Tensor:
@@ -128,6 +148,90 @@ def k2_library(feat: torch.Tensor, wy: torch.Tensor,
     return torch.einsum("bkph,bkqw,bhwc->bkpqc", wy, wx, feat)
 
 
+def bound(nbytes: float, ops: float) -> tuple:
+    """The least time the card could take, in ms, and what bounds it:
+    bytes over the HBM rate or f32 operations over the f32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                  else "operations")
+
+
+def k12_cases(cra, feat: torch.Tensor, boxes: torch.Tensor) -> list:
+    """K1 and K2 against their plain versions on one map [B, H, W, C] and
+    one box set [B, K, 4], checked and timed; K2's library yardstick
+    (one three-operand torch.einsum) checked and timed too."""
+    dtype = feat.dtype
+    k = boxes.shape[1]
+    name = f"B={feat.shape[0]} K={k} {str(dtype).split('.')[-1]}"
+    esz = feat.element_size()
+    # K1.
+    wy, wx = cra.roi_weights(boxes, (H, W), OUT, RATIO, SCALE, dtype)
+    py, px = cra.roi_weights_plain(boxes, (H, W), OUT, RATIO, SCALE, dtype)
+    err1 = max((wy.float() - py.float()).abs().max().item(),
+               (wx.float() - px.float()).abs().max().item())
+    # K2, on the kernel's own weights.
+    out = cra.roi_align_fwd(feat, wy, wx)
+    ref = cra.roi_align_fwd_plain(feat, wy, wx)
+    diff = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    # bf16: the row result and the output are rounded to bf16 in both,
+    # after f32 sums taken in another order, which can flip a rounding:
+    # 2 bf16 ulps at the output's magnitude. f32: reassociation of <= 16
+    # taps, 1e-5 relative.
+    tol2 = (2 * 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) \
+        * max(scale, 1.0)
+    torch.cuda.synchronize()
+    log(f"[kernels] {name}: K1 max_err {err1:.3g} (tol "
+        f"{TOL_K1[dtype]:.3g}), K2 max_err {diff:.3g} (tol {tol2:.3g})")
+    if not (err1 <= TOL_K1[dtype] and diff <= tol2):
+        raise AssertionError(f"kernel disagrees with plain at {name}")
+    # The library call rounds at other points (bf16 products or bf16 row
+    # sums, then the output): each side is off by at most ~2 bf16
+    # half-ulps of the map's magnitude, so 2^-6 of max|F| in bf16; f32
+    # sums in another order, 1e-5 of max|F|.
+    lib = k2_library(feat, wy, wx)
+    fmax = feat.float().abs().max().item()
+    err_lib = (lib.float() - ref.float()).abs().max().item()
+    tol_lib = (2.0 ** -6 if dtype == torch.bfloat16 else 1e-5) * fmax
+    torch.cuda.synchronize()
+    log(f"[kernels] {name}: library einsum vs plain K2 max_err "
+        f"{err_lib:.3g} (tol {tol_lib:.3g})")
+    if not err_lib <= tol_lib:
+        raise AssertionError(f"library K2 disagrees with plain at {name}")
+    del lib
+
+    k1_bytes = boxes.numel() * 4 + (wy.numel() + wx.numel()) * esz
+    k1_ops = 12.0 * RATIO * (wy.numel() + wx.numel())
+    k2_bytes = (feat.numel() + wy.numel() + wx.numel() + out.numel()) * esz
+    k2_ops = k2_operations(wy, wx, C)
+    shape = dict(B=feat.shape[0], H=H, W=W, C=C, K=k, dtype=str(dtype))
+    cases = []
+    for kname, fn, plain, library, nbytes, ops, err, tol in (
+        ("roi_weights",
+         lambda: cra.roi_weights(boxes, (H, W), OUT, RATIO, SCALE, dtype),
+         lambda: cra.roi_weights_plain(boxes, (H, W), OUT, RATIO, SCALE,
+                                       dtype),
+         None, k1_bytes, k1_ops, err1, TOL_K1[dtype]),
+        ("roi_align_fwd", lambda: cra.roi_align_fwd(feat, wy, wx),
+         lambda: cra.roi_align_fwd_plain(feat, wy, wx),
+         lambda: k2_library(feat, wy, wx),
+         k2_bytes, k2_ops, diff, tol2),
+    ):
+        bms, bby = bound(nbytes, ops)
+        cases.append(dict(
+            name=kname, shape=shape, max_err=err, tol=tol,
+            ms=time_ms(fn), plain_ms=time_ms(plain),
+            library_ms=time_ms(library) if library else None,
+            library_err=err_lib if library else None,
+            library_tol=tol_lib if library else None,
+            kernel_ms=kernel_ms(fn, kname + "_kernel"),
+            bound_ms=bms, bound_by=bby, bytes=nbytes, operations=ops))
+    del out, ref, wy, wx, py, px
+    torch.cuda.empty_cache()
+    return cases
+
+
 def phase_kernels(cra) -> list:
     gen = torch.Generator().manual_seed(SEED)
     dev = torch.device("cuda")
@@ -136,81 +240,371 @@ def phase_kernels(cra) -> list:
     for k in (50, 256):
         boxes = make_boxes(k, gen).to(dev)
         for dtype in (torch.bfloat16, torch.float32):
-            name = f"K={k} {str(dtype).split('.')[-1]}"
-            feat = feat32.to(dtype)
-            esz = feat.element_size()
-            # K1.
-            wy, wx = cra.roi_weights(boxes, (H, W), OUT, RATIO, SCALE, dtype)
-            py, px = cra.roi_weights_plain(boxes, (H, W), OUT, RATIO, SCALE,
-                                           dtype)
-            err1 = max((wy.float() - py.float()).abs().max().item(),
-                       (wx.float() - px.float()).abs().max().item())
-            # K2, on the kernel's own weights.
-            out = cra.roi_align_fwd(feat, wy, wx)
-            ref = cra.roi_align_fwd_plain(feat, wy, wx)
-            diff = (out.float() - ref.float()).abs().max().item()
+            cases += k12_cases(cra, feat32.to(dtype), boxes)
+    return cases
+
+
+def train_gt(b: int, slots: int, rng: np.random.Generator, h: int = 224,
+             w: int = 304, n_inst: int = 40):
+    """bench.py's synthetic training targets: 40 boxes of 20-55 px per
+    h x w tile in `slots` slots, uint8 mask28. Image 1 repeats three of
+    its boxes in free slots (duplicate GT, so GT tie) and puts one box
+    on an anchor's exact coordinates; image 2 has every slot invalid."""
+    from livecell_tpu_torch.ops.anchors import generate_anchors
+    boxes = np.zeros((b, slots, 4), np.float32)
+    for bi in range(b):
+        x1 = rng.uniform(0, w - 60, n_inst)
+        y1 = rng.uniform(0, h - 60, n_inst)
+        bw, bh = rng.uniform(20, 55, n_inst), rng.uniform(20, 55, n_inst)
+        boxes[bi, :n_inst] = np.stack([x1, y1, x1 + bw, y1 + bh], axis=1)
+    valid = np.zeros((b, slots), bool)
+    valid[:, :n_inst] = True
+    if b > 2:
+        anchors = generate_anchors((h // 4, w // 4))
+        boxes[1, n_inst:n_inst + 3] = boxes[1, :3]
+        boxes[1, n_inst + 3] = anchors[len(anchors) // 2]
+        valid[1, n_inst:n_inst + 4] = True
+        valid[2] = False
+    mask28 = (rng.uniform(size=(b, slots, 28, 28)) > 0.5).astype(np.uint8) \
+        * 255
+    return boxes, valid, mask28
+
+
+def k3_operations(wy: torch.Tensor, wx: torch.Tensor, c: int) -> float:
+    """Multiply-adds K3's data needs, x2: per ROI and bin row p, u over
+    the non-zero x taps of every bin column q, then each non-zero y tap
+    of row p times every column the ROI reads."""
+    ny = (wy != 0).sum(-1).float()                   # [B, K, n]
+    nx = (wx != 0).sum(-1).float()
+    xs = (wx != 0).any(dim=2).sum(-1).float()        # [B, K]
+    u = nx.sum(-1) * wy.shape[2]
+    d = ny.sum(-1) * xs
+    return float(2.0 * c * (u + d).sum())
+
+
+def k3_library(g: torch.Tensor, wy: torch.Tensor,
+               wx: torch.Tensor) -> torch.Tensor:
+    """K3's function as one PyTorch call, its library yardstick; the
+    port never calls it."""
+    return torch.einsum("bkph,bkqw,bkpqc->bhwc", wy, wx, g)
+
+
+def phase_train_kernels(cra, cm) -> list:
+    """K4 (full and max-only), K3 (bf16 and f32), and K1/K2 (bf16) against
+    their plain versions at the training shapes."""
+    from livecell_tpu_torch.ops.anchors import generate_anchors
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 1)
+    anchors = torch.from_numpy(generate_anchors((H, W))).to(dev)
+    n = anchors.shape[0]
+    boxes, valid, _ = train_gt(32, 128, rng)
+    cases = []
+    # K4: fixed mode (32 images x 128 slots) and quirk mode (1 "image" of
+    # the 4,096 slots concatenated).
+    for label, gt, v in (
+            ("fixed B=32 I=128", boxes, valid),
+            ("quirk B=1 I=4096", boxes.reshape(1, -1, 4),
+             valid.reshape(1, -1))):
+        gt = torch.from_numpy(gt).to(dev)
+        v = torch.from_numpy(v).to(dev)
+        b, i = v.shape
+        for full in (True, False):
+            got = cm.match_anchors(anchors, gt, v, full)
+            want = cm.match_anchors_plain(anchors, gt, v, full)
+            if not full:
+                got, want = (got,), (want,)
+            torch.cuda.synchronize()
+            err_iou = (got[0] - want[0]).abs().max().item()
+            ok = err_iou <= 1e-6
+            err = err_iou
+            if full:
+                err_tgt = (got[1] - want[1]).abs().max().item()
+                rel_tgt = ((got[1] - want[1]).abs()
+                           / want[1].abs().clamp(min=1.0)).max().item()
+                best_eq = torch.equal(got[2], want[2])
+                ok = ok and rel_tgt <= 1e-5 and best_eq
+                err = max(err, err_tgt)
+                log(f"[kernels] K4 {label} full: max_iou err {err_iou:.3g} "
+                    f"(tol 1e-6), targets err {err_tgt:.3g} (tol 1e-5 "
+                    f"relative, got {rel_tgt:.3g}), best anchor equal "
+                    f"{best_eq}")
+            else:
+                log(f"[kernels] K4 {label} max-only: max_iou err "
+                    f"{err_iou:.3g} (tol 1e-6)")
+            if not ok:
+                raise AssertionError(f"K4 disagrees with plain at {label}")
+            del got, want
+            pairs = b * n * i
+            ops = (20.0 if full else 16.0) * pairs
+            nbytes = n * 16 + b * i * 17 + b * n * 4 + (
+                b * n * 16 + b * i * 8 if full else 0)
+            bms, bby = bound(nbytes, ops)
+            cases.append(dict(
+                name="match_anchors", shape=dict(B=b, N=n, I=i, full=full),
+                max_err=err, tol=1e-6 if not full else 1e-5,
+                ms=time_ms(lambda: cm.match_anchors(anchors, gt, v, full),
+                           runs=11),
+                plain_ms=time_ms(
+                    lambda: cm.match_anchors_plain(anchors, gt, v, full),
+                    warmup=1, runs=3, calls=2),
+                library_ms=None,
+                kernel_ms=kernel_ms(
+                    lambda: cm.match_anchors(anchors, gt, v, full),
+                    "match_kernel"),
+                bound_ms=bms, bound_by=bby, bytes=nbytes, operations=ops))
+            torch.cuda.empty_cache()
+    # K3 at the training RoIAlign shapes: fixed mode [32, 128] and quirk
+    # mode [1, 128] proposals on the 56x76x256 map.
+    gen = torch.Generator().manual_seed(SEED + 2)
+    for b in (32, 1):
+        rois = torch.cat([make_boxes(128, gen) for _ in range(2)])[:b]
+        rois = rois.contiguous().to(dev)
+        if b == 32:
+            # K1 and K2 at the fixed mode's training shape.
+            feat = torch.randn((b, H, W, C), generator=gen).to(
+                dev, torch.bfloat16)
+            cases += k12_cases(cra, feat, rois)
+            del feat
+        for dtype in (torch.bfloat16, torch.float32):
+            name = f"B={b} K=128 {str(dtype).split('.')[-1]}"
+            wy, wx = cra.roi_weights(rois, (H, W), OUT, RATIO, SCALE, dtype)
+            g = torch.randn((b, 128, OUT, OUT, C), generator=gen).to(
+                dev, dtype)
+            got = cra.roi_align_bwd(g, wy, wx, (H, W))
+            ref = cra.roi_align_bwd_plain(g, wy, wx, (H, W))
+            diff = (got.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
-            # bf16: the row result and the output are rounded to bf16 in
-            # both, after f32 sums taken in another order, which can flip
-            # a rounding: 2 bf16 ulps at the output's magnitude. f32:
-            # reassociation of <= 16 taps, 1e-5 relative.
-            tol2 = (2 * 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) \
+            # bf16: u and dF are rounded to bf16 in both after f32 sums
+            # in another order, which can flip a rounding: 2 bf16 ulps at
+            # the output's magnitude. f32: reassociation of the sums over
+            # ROIs and bins, 1e-5 relative.
+            tol = (2 * 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) \
+                * max(scale, 1.0)
+            lib = k3_library(g, wy, wx)
+            err_lib = (lib.float() - ref.float()).abs().max().item()
+            # The library call contracts in the input dtype with its own
+            # intermediates: bf16 within 2^-5 of max|dF|, f32 1e-5.
+            tol_lib = (2.0 ** -5 if dtype == torch.bfloat16 else 1e-5) \
                 * max(scale, 1.0)
             torch.cuda.synchronize()
-            log(f"[kernels] {name}: K1 max_err {err1:.3g} (tol "
-                f"{TOL_K1[dtype]:.3g}), K2 max_err {diff:.3g} (tol "
-                f"{tol2:.3g})")
-            if not (err1 <= TOL_K1[dtype] and diff <= tol2):
-                raise AssertionError(f"kernel disagrees with plain at {name}")
-            # The library call rounds at other points (bf16 products or
-            # bf16 row sums, then the output): each side is off by at most
-            # ~2 bf16 half-ulps of the map's magnitude, so 2^-6 of max|F|
-            # in bf16; f32 sums in another order, 1e-5 of max|F|.
-            lib = k2_library(feat, wy, wx)
-            fmax = feat.float().abs().max().item()
-            err_lib = (lib.float() - ref.float()).abs().max().item()
-            tol_lib = (2.0 ** -6 if dtype == torch.bfloat16 else 1e-5) * fmax
-            torch.cuda.synchronize()
-            log(f"[kernels] {name}: library einsum vs plain K2 max_err "
-                f"{err_lib:.3g} (tol {tol_lib:.3g})")
-            if not err_lib <= tol_lib:
-                raise AssertionError(f"library K2 disagrees with plain at "
-                                     f"{name}")
-            del lib
-
-            k1_bytes = boxes.numel() * 4 + (wy.numel() + wx.numel()) * esz
-            k1_ops = 12.0 * RATIO * (wy.numel() + wx.numel())
-            k2_bytes = (feat.numel() + wy.numel() + wx.numel()
-                        + out.numel()) * esz
-            k2_ops = k2_operations(wy, wx, C)
-            shape = dict(B=B, H=H, W=W, C=C, K=k, dtype=str(dtype))
-            for kname, fn, plain, library, nbytes, ops, err, tol in (
-                ("roi_weights",
-                 lambda: cra.roi_weights(boxes, (H, W), OUT, RATIO, SCALE,
-                                         dtype),
-                 lambda: cra.roi_weights_plain(boxes, (H, W), OUT, RATIO,
-                                               SCALE, dtype),
-                 None, k1_bytes, k1_ops, err1, TOL_K1[dtype]),
-                ("roi_align_fwd", lambda: cra.roi_align_fwd(feat, wy, wx),
-                 lambda: cra.roi_align_fwd_plain(feat, wy, wx),
-                 lambda: k2_library(feat, wy, wx),
-                 k2_bytes, k2_ops, diff, tol2),
-            ):
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                t_ops = ops / F32_FLOP_PER_S * 1e3
-                cases.append(dict(
-                    name=kname, shape=shape, max_err=err, tol=tol,
-                    ms=time_ms(fn), plain_ms=time_ms(plain),
-                    library_ms=time_ms(library) if library else None,
-                    library_err=err_lib if library else None,
-                    library_tol=tol_lib if library else None,
-                    kernel_ms=kernel_ms(fn, kname + "_kernel"),
-                    bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    bytes=nbytes, operations=ops))
-            del out, ref, wy, wx, py, px
+            log(f"[kernels] K3 {name}: max_err {diff:.3g} (tol {tol:.3g}); "
+                f"library einsum vs plain {err_lib:.3g} (tol {tol_lib:.3g})")
+            if not (diff <= tol and err_lib <= tol_lib):
+                raise AssertionError(f"K3 disagrees at {name}")
+            del lib, ref
+            esz = g.element_size()
+            nbytes = (g.numel() + wy.numel() + wx.numel()
+                      + b * H * W * C) * esz
+            ops = k3_operations(wy, wx, C)
+            bms, bby = bound(nbytes, ops)
+            cases.append(dict(
+                name="roi_align_bwd",
+                shape=dict(B=b, H=H, W=W, C=C, K=128, dtype=str(dtype)),
+                max_err=diff, tol=tol,
+                ms=time_ms(lambda: cra.roi_align_bwd(g, wy, wx, (H, W))),
+                plain_ms=time_ms(
+                    lambda: cra.roi_align_bwd_plain(g, wy, wx, (H, W)),
+                    warmup=1, runs=5, calls=2),
+                library_ms=time_ms(lambda: k3_library(g, wy, wx), runs=11),
+                library_err=err_lib, library_tol=tol_lib,
+                kernel_ms=kernel_ms(
+                    lambda: cra.roi_align_bwd(g, wy, wx, (H, W)),
+                    "roi_align_bwd_kernel"),
+                bound_ms=bms, bound_by=bby, bytes=nbytes, operations=ops))
+            del got, g, wy, wx
             torch.cuda.empty_cache()
+    for c in cases:
+        log("[kernels]", json.dumps({k: v for k, v in c.items()}))
     return cases
+
+
+# The training configurations, on top of ModelConfig() (bf16 compute):
+# T1 the reference's quirk mode, T2 the flagship fixed mode
+# (--fixed_heads --decode_proposals --mask_samples 64).
+TRAIN_CFGS = {"T1": {},
+              "T2": dict(heads_all_images=True, decode_proposals=True,
+                         mask_train_samples=64)}
+TRAIN_B, POOL_TILES = 32, 128
+WARMUP_STEPS, TIMED_STEPS = 3, 10
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_counters() -> dict:
+    """The launch counters of the four kernels of a training step."""
+    from livecell_tpu_torch.ops import cuda_match as cm
+    from livecell_tpu_torch.ops import cuda_roi_align as cra
+    return {"roi_weights": cra.roi_weights,
+            "roi_align_fwd": cra.roi_align_fwd,
+            "roi_align_bwd": cra.roi_align_bwd,
+            "match_anchors": cm.match_anchors}
+
+
+def make_pool(cfg, n: int, dev, seed: int):
+    """bench.py's synthetic training batch as a pool on `dev`: uint8
+    images, 40 boxes of 20-55 px per tile in max_instances slots, uint8
+    mask28 (train_gt: one tile with duplicate GT, one without GT)."""
+    from livecell_tpu_torch.data.device_data import DeviceDataset
+    rng = np.random.default_rng(seed)
+    h, w = cfg.image_height, cfg.image_width
+    images = (rng.uniform(size=(n, h, w, 3)) * 255).astype(np.uint8)
+    boxes, valid, mask28 = train_gt(n, cfg.max_instances, rng, h, w)
+    return DeviceDataset(images, {"boxes": boxes, "valid": valid,
+                                  "labels": valid.astype(np.int32),
+                                  "mask28": mask28}, device=dev)
+
+
+def phase_train(label: str, cfg, pool, batch: int, dev,
+                profile: bool = True):
+    """WARMUP_STEPS then TIMED_STEPS training steps through train_epoch
+    at `batch`, from weights of the seed. The launch counters are zeroed
+    just before the timed steps and read just after: each of K1-K4 must
+    run once per step. Returns (result, trained model, optimizer)."""
+    from livecell_tpu_torch.data.device_data import epoch_indices, train_epoch
+    from livecell_tpu_torch.models.mask_rcnn import create_train_model
+    from livecell_tpu_torch.parallel.train_step import (
+        build_optimizer, make_step_fn)
+
+    model = create_train_model(cfg, torch.Generator().manual_seed(SEED),
+                               device=dev)
+    idx = epoch_indices(len(pool), batch, seed=SEED)
+    opt = build_optimizer(model, 1e-3, 1e-4, steps_per_epoch=len(idx))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = np.arange(WARMUP_STEPS + TIMED_STEPS) % len(idx)
+    warm = train_epoch(model, opt, pool, idx[rows[:WARMUP_STEPS]], gen)
+    sync(dev)
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    m = train_epoch(model, opt, pool, idx[rows[WARMUP_STEPS:]], gen)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    losses = np.concatenate([warm["total_loss"], m["total_loss"]])
+    res = dict(config=label, batch=batch, steps=TIMED_STEPS,
+               step_ms=dt / TIMED_STEPS * 1e3,
+               img_per_s=batch * TIMED_STEPS / dt,
+               first_total_loss=float(losses[0]),
+               last_total_loss=float(losses[-1]),
+               grad_norm=float(m["grad_norm"][-1]),
+               losses={k: float(v[-1]) for k, v in m.items()
+                       if k.startswith("loss_")},
+               launches_per_step={k: v / TIMED_STEPS
+                                  for k, v in launches.items()})
+    log(f"[train {label}]", json.dumps(res))
+    if not (np.isfinite(losses).all() and np.isfinite(m["grad_norm"]).all()):
+        raise AssertionError(f"{label}: non-finite loss or grad norm")
+    if dev != "cpu" and launches != {k: TIMED_STEPS for k in launches}:
+        raise AssertionError(f"{label}: launches {launches}, expected one "
+                             f"per step of each kernel")
+    if profile:
+        step = make_step_fn(model, opt)
+        images, targets = pool.batch(torch.as_tensor(
+            idx[0], dtype=torch.long, device=pool.images.device))
+        res["profile"] = profile_call(
+            lambda: step(images, targets, generator=gen))
+        log(f"[profile {label}]", json.dumps(res["profile"]))
+    return res, model, opt
+
+
+def phase_train_e2e(cfg, pool, batch: int, dev) -> dict:
+    """One f32 training step from the same weights, batch and draws with
+    the kernels (roi_backend and match_backend "kernel") and with their
+    plain versions: the sampled selections must be equal, the losses and
+    every parameter's gradient close. The kernel route runs twice, so
+    the kernel-vs-kernel spread shows the run-to-run noise."""
+    from livecell_tpu_torch.models.mask_rcnn import create_train_model
+    from livecell_tpu_torch.parallel.train_step import (
+        build_optimizer, make_step_fn)
+
+    images, targets = pool.batch(
+        torch.arange(batch, device=pool.images.device))
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    for backend in ("kernel", "plain", "kernel"):
+        route = "kernel" if backend == "kernel" and dev != "cpu" else "plain"
+        c = dataclasses.replace(cfg, compute_dtype="float32",
+                                roi_backend=route, match_backend=route)
+        model = create_train_model(c, torch.Generator().manual_seed(SEED),
+                                   device=dev)
+        opt = build_optimizer(model, 1e-3, 1e-4, 1)
+        record = {}
+        m = make_step_fn(model, opt)(
+            images, targets, record=record,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 5))
+        runs.append((m, record, {n: p.grad.clone()
+                                 for n, p in model.named_parameters()}))
+        del model, opt
+    torch.backends.cudnn.deterministic = False
+    (mk, rk, gk), (mp, rp, gp), (_, _, gk2) = runs
+    same = {k: torch.equal(rk[k], rp[k]) for k in rp}
+
+    def worst(ga, gb):
+        """Largest per-tensor |a - b| / max|b| and the tensor's name."""
+        return max(((ga[n] - gb[n]).abs().max().item()
+                    / max(gb[n].abs().max().item(), 1e-12), n) for n in gb)
+
+    loss_err = max(abs(mk[k].item() - mp[k].item()) / max(abs(mp[k].item()),
+                                                           1e-6)
+                   for k in mp if k.startswith("loss_"))
+    g_err, g_name = worst(gk, gp)
+    spread, _ = worst(gk2, gk)
+    res = dict(batch=batch, selections_equal=same, loss_rel_err=loss_err,
+               grad_rel_err=g_err, grad_worst=g_name,
+               kernel_vs_kernel_grad_rel=spread,
+               losses_kernel={k: mk[k].item() for k in mk},
+               losses_plain={k: mp[k].item() for k in mp})
+    log("[train e2e f32]", json.dumps(res))
+    # Tolerances: the kernels agree with their plain versions bit for bit
+    # (K1, K4's IoU) or within f32 reassociation (K2, K3: ~1e-7 of the
+    # scale); the losses are sums over the same selections, 1e-5
+    # relative. Gradients pass those differences, and the order of
+    # cuDNN's and the atomics' f32 sums, back through ~20 layers of
+    # train-mode batch norm: 1e-3 of each tensor's largest entry.
+    if not (all(same.values()) and loss_err <= 1e-5 and g_err <= 1e-3):
+        raise AssertionError(f"train e2e: kernel and plain disagree: {res}")
+    return res
+
+
+def phase_checkpoint(model, opt, dev, tile: np.ndarray) -> dict:
+    """Save the trained model with train/checkpoint.py, load it with
+    serve/app.py:load_model and serve one tile through InferenceEngine;
+    the served weights are the trained ones cast to the serving dtype."""
+    import tempfile
+
+    from livecell_tpu_torch.ops import cuda_roi_align as cra
+    from livecell_tpu_torch.serve.app import InferenceEngine, load_model
+    from livecell_tpu_torch.train import checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = checkpoint.save(tmp + "/ckpt", model, opt, epoch=1)
+        served = load_model(path, device=dev)
+    trained = model.state_dict()
+    for k, v in served.state_dict().items():
+        if not torch.equal(v, trained[k].to(v.dtype)):
+            raise AssertionError(f"checkpoint: {k} differs after loading")
+    cra.roi_weights.launches = cra.roi_align_fwd.launches = 0
+    boxes, scores, masks = InferenceEngine(model=served, device=dev).predict(
+        tile, score_threshold=0.0)
+    sync(dev)
+    res = dict(detections=len(boxes), launches={
+        "roi_weights": cra.roi_weights.launches,
+        "roi_align_fwd": cra.roi_align_fwd.launches})
+    log("[checkpoint]", json.dumps(res))
+    if not (np.isfinite(boxes).all() and np.isfinite(scores).all()
+            and masks.shape == (len(boxes),) + tile.shape[:2]):
+        raise AssertionError("checkpoint: malformed output")
+    # One RoIAlign per forward, two with decode_proposals (the second
+    # mask pass at the refined boxes).
+    per_fwd = 2 if served.cfg.decode_proposals else 1
+    if dev != "cpu" and res["launches"] != {"roi_weights": per_fwd,
+                                            "roi_align_fwd": per_fwd}:
+        raise AssertionError(f"checkpoint: launches {res['launches']}")
+    return res
 
 
 def synthetic_frame(h: int, w: int, seed: int) -> np.ndarray:
@@ -260,22 +654,25 @@ def serve(engine, image, counters, expect_fwd, label):
     return res
 
 
-def profile_request(engine, image) -> dict:
-    """Device time by kernel over one steady request (torch.profiler):
-    the kernels' summed time, the request's wall time and the share of
-    it the device sat idle, and the kernels that took the most."""
+def profile_call(fn) -> dict:
+    """Device time by kernel over one call of `fn` (torch.profiler): the
+    kernels' summed time, the call's wall time and the share of it the
+    device sat idle, and the kernels that took the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.predict(image, score_threshold=0.0)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    # A user annotation's device range (the optimizer's step) spans
+    # kernels already counted: left out.
     rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
                    for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA
+                   and not getattr(ev, "is_user_annotation", False)
                    and ev.self_device_time_total > 0), reverse=True)
     busy = sum(r[0] for r in rows) / 1e3
     return dict(wall_ms=wall, device_busy_ms=busy,
@@ -285,6 +682,11 @@ def profile_request(engine, image) -> dict:
                      for us, k, n in rows[:10]])
 
 
+def profile_request(engine, image) -> dict:
+    """profile_call over one steady request."""
+    return profile_call(lambda: engine.predict(image, score_threshold=0.0))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -292,6 +694,7 @@ def main() -> int:
     from livecell_tpu_torch.config import ModelConfig, TileConfig
     from livecell_tpu_torch.models.mask_rcnn import create_model
     from livecell_tpu_torch.ops import _build
+    from livecell_tpu_torch.ops import cuda_match as cm
     from livecell_tpu_torch.ops import cuda_roi_align as cra
     from livecell_tpu_torch.serve.app import InferenceEngine
     from livecell_tpu_torch.serve.stitch import tile_position
@@ -319,8 +722,10 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions: K1/K2 at the serving
+    # shapes, then K4, K3 and K1/K2 at the training shapes.
     cases = phase_kernels(cra)
+    cases += phase_train_kernels(cra, cm)
 
     # 4. serve
     tcfg = TileConfig()
@@ -373,22 +778,50 @@ def main() -> int:
     if not (v.any() and max(e2e.values()) <= 1e-3):
         raise AssertionError(f"e2e: kernel and plain disagree: {e2e}")
 
-    # The kernels' line: headline numbers at the main path's shape
-    # (K = 50, bf16); every case under "cases".
+    # 6. train: T1 and T2 at batch 32 through train_epoch, from a pool of
+    # synthetic tiles on the card.
+    pool = make_pool(cfg, POOL_TILES, "cuda", SEED)
+    train = {}
+    for label, kw in TRAIN_CFGS.items():
+        train[label], tmodel, topt = phase_train(
+            label, dataclasses.replace(cfg, **kw), pool, TRAIN_B, "cuda")
+    torch.cuda.empty_cache()
+
+    # 7. train end to end, kernel vs plain, f32, batch 4 (T2).
+    phase_train_e2e(dataclasses.replace(cfg, **TRAIN_CFGS["T2"]), pool, 4,
+                    "cuda")
+
+    # 8. checkpoint round trip of the T2 model, served.
+    phase_checkpoint(tmodel, topt, "cuda", tile)
+
+    # The kernels' line: every kernel's headline case at the training
+    # step's shape (B = 32, K = 128 bf16; K4 in T2's full form), `launches`
+    # from T2's timed steps; every case under "cases".
     replaces = {
         "roi_weights": "livecell_tpu/ops/pallas_roi_align.py:90",
-        "roi_align_fwd": "livecell_tpu/ops/pallas_roi_align.py:126"}
+        "roi_align_fwd": "livecell_tpu/ops/pallas_roi_align.py:126",
+        "roi_align_bwd": "livecell_tpu/ops/pallas_roi_align.py:152",
+        "match_anchors": "livecell_tpu/ops/pallas_match.py:44"}
+    serve_reqs = (req_a, req_b, req_c)
     kernels = []
-    for kname in ("roi_weights", "roi_align_fwd"):
+    for kname in replaces:
         mine = [c for c in cases if c["name"] == kname]
-        head = next(c for c in mine if c["shape"]["K"] == 50
-                    and "bfloat16" in c["shape"]["dtype"])
+        sh = {"B": 32, "K": 128, "dtype": str(torch.bfloat16)} \
+            if kname != "match_anchors" else {"B": 32, "I": 128, "full": True}
+        head = next(c for c in mine
+                    if all(c["shape"][k] == v for k, v in sh.items()))
+        per_path = {label: r["launches_per_step"][kname]
+                    for label, r in train.items()}
+        per_path.update({r["request"][0]: r["launches"][kname]
+                         for r in serve_reqs if kname in r["launches"]})
         kernels.append(dict(
             name=kname, route="cuda",
-            source="livecell_tpu_torch/csrc/roi_align.cu",
-            replaces=replaces[kname], launches=req_a["launches"][kname],
-            launches_per_request={r["request"][0]: r["launches"][kname]
-                                  for r in (req_a, req_b, req_c)},
+            source="livecell_tpu_torch/csrc/" + (
+                "match.cu" if kname == "match_anchors" else "roi_align.cu"),
+            replaces=replaces[kname],
+            launches=round(train["T2"]["launches_per_step"][kname]
+                           * TIMED_STEPS),
+            launches_per_path=per_path,
             max_abs_err=max(c["max_err"] for c in mine),
             max_err=max(c["max_err"] for c in mine),
             tol=head["tol"], shape=head["shape"], ms=head["ms"],

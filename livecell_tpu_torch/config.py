@@ -5,9 +5,13 @@ The port's own copy of the configuration dataclasses of the JAX package
 names, defaults and the JSON sidecar format are the same, so a
 `model_config.json` written by either package loads in the other.
 
-One field changes meaning: `roi_backend` selects the RoIAlign route of
-ops/cuda_roi_align.py ("auto": the hand-written kernels on CUDA tensors
-and their plain PyTorch versions on CPU tensors; "kernel"; "plain").
+Three fields change meaning. `roi_backend` and `match_backend` select
+the route of ops/cuda_roi_align.py and ops/cuda_match.py ("auto": the
+hand-written kernels on CUDA tensors and their plain PyTorch versions
+on CPU tensors; "kernel"; "plain"). `topk_backend` is "exact" or "auto"
+(exact too): JAX's approximate top-k is a TPU instruction. A JAX sidecar's
+route names ("einsum"/"pallas", "xla"/"pallas", "approx") are a choice
+of deployment, not of semantics, and load as the port's routes.
 """
 
 from __future__ import annotations
@@ -55,6 +59,14 @@ class TileConfig:
     @property
     def num_tiles(self) -> int:
         return self.tiles_per_row ** 2
+
+
+ROUTES = ("auto", "kernel", "plain")
+
+# JAX route names in a model_config.json sidecar -> the port's routes.
+JAX_ROUTES = {"roi_backend": {"einsum": "auto", "pallas": "auto"},
+              "match_backend": {"xla": "auto", "pallas": "auto"},
+              "topk_backend": {"approx": "exact"}}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,7 +148,9 @@ class ModelConfig:
     # "plain" (always the plain PyTorch version).
     roi_backend: str = "auto"
 
+    # Anchor-matcher route: the same three values as roi_backend.
     match_backend: str = "auto"
+    # "exact" or "auto" (exact).
     topk_backend: str = "auto"
     heads_all_images: bool = False
 
@@ -145,6 +159,14 @@ class ModelConfig:
     decode_proposals: bool = False
     box_reg_weights: tuple = (10.0, 10.0, 5.0, 5.0)
     rpn_force_best_anchor: bool = True
+
+    def __post_init__(self):
+        for name, allowed in (("roi_backend", ROUTES),
+                              ("match_backend", ROUTES),
+                              ("topk_backend", ("auto", "exact"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got "
+                                 f"{getattr(self, name)!r}")
 
     @property
     def num_anchors_per_cell(self) -> int:
@@ -174,11 +196,26 @@ def model_config_to_dict(mcfg: ModelConfig) -> dict:
 
 
 def model_config_from_dict(d: dict) -> ModelConfig:
-    """Inverse of model_config_to_dict; unknown keys are ignored."""
+    """Inverse of model_config_to_dict; unknown keys are ignored and the
+    JAX package's route names map onto the port's (JAX_ROUTES)."""
     fields = {f.name for f in dataclasses.fields(ModelConfig)}
     kw = {k: tuple(v) if isinstance(v, list) else v
           for k, v in d.items() if k in fields}
+    for k, names in JAX_ROUTES.items():
+        if k in kw:
+            kw[k] = names.get(kw[k], kw[k])
     return ModelConfig(**kw)
+
+
+def strict_equivalence_config(mcfg: ModelConfig) -> ModelConfig:
+    """A deterministic variant of `mcfg` (the counterpart of the JAX
+    package's, livecell_tpu/config.py:241-269): f32 compute, exact
+    top-k, f32 RoIAlign, frozen batch norm. The routes stay as they are:
+    every kernel of the port and its plain version sums in a fixed
+    order, so each gives the same result in every run."""
+    return dataclasses.replace(
+        mcfg, compute_dtype="float32", topk_backend="exact",
+        roi_precision="highest", frozen_bn=True)
 
 
 def apply_dense_flags(mcfg: ModelConfig, dets: int = 0,
@@ -216,3 +253,19 @@ def add_dense_flags(parser) -> None:
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     tile: TileConfig = dataclasses.field(default_factory=TileConfig)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization schedule (the JAX package's TrainConfig): AdamW with
+    a StepLR(lr_step_size, lr_gamma) decay per epoch."""
+
+    batch_size: int = 2
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-4
+    num_epochs: int = 5
+    lr_step_size: int = 2
+    lr_gamma: float = 0.1
+    seed: int = 0
+    eval_score_thresh: float = 0.5
+    eval_iou_thresh: float = 0.5

@@ -46,7 +46,10 @@ def from_jax_variables(variables_np) -> "OrderedDict[str, torch.Tensor]":
     """{"params": ..., "batch_stats": ...} of the JAX CustomMaskRCNN, as
     nested dicts of numpy arrays -> a state dict for
     `CustomMaskRCNN.load_state_dict(..., strict=True)`. Every JAX leaf
-    is used and every port key is written exactly once."""
+    is used and every port key is written exactly once. Without
+    "batch_stats" only the parameters are mapped; the mapping is linear,
+    so a JAX gradient tree {"params": grads} maps onto the port's
+    parameter names and layouts the same way."""
     params = _flatten(variables_np["params"])
     stats = _flatten(variables_np.get("batch_stats", {}))
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()

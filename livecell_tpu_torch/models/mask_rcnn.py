@@ -1,11 +1,16 @@
-"""Custom Mask R-CNN, inference path (counterpart of
-livecell_tpu/models/mask_rcnn.py: CustomMaskRCNN.extract_features,
-_roi_align, inference_forward; create_model).
+"""Custom Mask R-CNN (counterpart of livecell_tpu/models/mask_rcnn.py:
+CustomMaskRCNN.extract_features, _match_anchors, _roi_align,
+train_forward, inference_forward; create_model).
 
 Images and feature maps are NHWC at the public boundary; inside, the
 convolutions run NCHW on channels_last memory, so a feature map's NHWC
 view is contiguous and goes to the RoIAlign kernels without a copy.
 Inference is batched over images: one forward serves a frame's tiles.
+
+Training keeps f32 parameters (`create_train_model`) and runs the
+convolutions and matmuls in the compute dtype under autocast, as flax
+casts an f32 parameter to `dtype=bf16` inside each op. The step's
+random draws are explicit uniforms (`sampling_noise`).
 """
 
 from __future__ import annotations
@@ -18,16 +23,21 @@ from torch import nn
 from livecell_tpu_torch.config import ModelConfig
 from livecell_tpu_torch.device import resolve_device
 from livecell_tpu_torch.models.cbam import CBAM
-from livecell_tpu_torch.models.detector import Detections
+from livecell_tpu_torch.models.detector import (
+    Detections, HeadTargets, box_losses, mask_loss, mask_loss_on,
+    match_head_targets, rpn_loss_single, rpn_reg_loss_from_match, rpn_sample)
 from livecell_tpu_torch.models.fpn import FPN
 from livecell_tpu_torch.models.heads import BoxHead, MaskHead
-from livecell_tpu_torch.models.resnet import ResNetBackbone
+from livecell_tpu_torch.models.resnet import BatchNorm, ResNetBackbone
 from livecell_tpu_torch.models.rpn import RPNHead
 from livecell_tpu_torch.ops.anchors import generate_anchors
 from livecell_tpu_torch.ops.boxes import clip_boxes, decode_boxes
+from livecell_tpu_torch.ops.cuda_match import (
+    match_anchors, match_anchors_plain)
 from livecell_tpu_torch.ops.cuda_roi_align import roi_align
 from livecell_tpu_torch.ops.nms import nms_fixed
-from livecell_tpu_torch.ops.proposals import inference_proposals, take_rows
+from livecell_tpu_torch.ops.proposals import (
+    inference_proposals, take_rows, top_k_stable, training_proposals)
 
 
 class CustomMaskRCNN(nn.Module):
@@ -52,6 +62,9 @@ class CustomMaskRCNN(nn.Module):
         self.mask_head = MaskHead(c.fpn_channels, c.num_classes,
                                   c.mask_size, g)
         self._anchor_cache: Dict[torch.device, torch.Tensor] = {}
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.frozen = c.frozen_bn
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -79,6 +92,20 @@ class CustomMaskRCNN(nn.Module):
         feats = self.fpn(stages, levels)
         return tuple(f.permute(0, 2, 3, 1) for f in feats)
 
+    def _match_anchors(self, gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
+                       full: bool = True):
+        """K4 over this model's anchors under cfg.match_backend: "auto"
+        (the kernel on CUDA tensors, its plain version on CPU tensors),
+        "kernel" (CUDA tensors only) or "plain"."""
+        backend = self.cfg.match_backend
+        anchors = self.anchors(gt_boxes.device)
+        if backend == "plain":
+            return match_anchors_plain(anchors, gt_boxes, gt_valid, full)
+        if backend == "kernel" and gt_boxes.device.type != "cuda":
+            raise ValueError("match_backend='kernel' needs CUDA tensors")
+        return match_anchors(anchors, gt_boxes.float().contiguous(),
+                             gt_valid.bool().contiguous(), full)
+
     def _roi_align(self, feats: torch.Tensor, boxes: torch.Tensor
                    ) -> torch.Tensor:
         """[B,H,W,C], [B,K,4] -> [B,K,s,s,C] through ops/cuda_roi_align
@@ -92,6 +119,123 @@ class CustomMaskRCNN(nn.Module):
                          boxes.float().contiguous(), c.roi_output_size,
                          c.roi_spatial_scale, c.roi_sampling_ratio,
                          backend=c.roi_backend)
+
+    def sampling_noise(self, b: int, device,
+                       generator: Optional[torch.Generator] = None
+                       ) -> Dict[str, torch.Tensor]:
+        """The uniforms of one training step of a batch of b, drawn from
+        `generator` (on `device`): per supervised image (image 0 in the
+        reference's quirk mode, every image with heads_all_images) two
+        [N] vectors ranking the RPN's positive and negative candidates
+        and one [min(train_pre_topk, N)] vector sampling the proposals."""
+        c = self.cfg
+        m = b if c.heads_all_images else 1
+        n = c.num_anchors
+
+        def draw(k):
+            return torch.rand((m, k), generator=generator, device=device)
+
+        return {"rpn_pos": draw(n), "rpn_neg": draw(n),
+                "proposals": draw(min(c.train_pre_topk, n))}
+
+    def train_forward(self, images: torch.Tensor,
+                      targets: Dict[str, torch.Tensor],
+                      noise: Optional[Dict[str, torch.Tensor]] = None,
+                      generator: Optional[torch.Generator] = None,
+                      record: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """images [B, H, W, 3] float in [0, 1], targets {boxes [B,I,4],
+        valid [B,I], mask28 [B,I,28,28] in [0, 1]} -> the loss dict (f32
+        scalars, in the JAX package's order). `noise` holds the step's
+        uniforms (`sampling_noise`), drawn from `generator` when None.
+        `record`, when given, receives the step's selections: the RPN's
+        sampled positives and negatives, the proposals and the mask
+        subset."""
+        b, dev = images.shape[0], images.device
+        if noise is None:
+            noise = self.sampling_noise(b, dev, generator)
+        on = self.compute_dtype != torch.float32
+        with torch.autocast(dev.type, dtype=self.compute_dtype, enabled=on):
+            return self._train_forward(images, targets, noise, record)
+
+    def _train_forward(self, images, targets, noise, record):
+        c = self.cfg
+        b = images.shape[0]
+        img_size = (c.image_height, c.image_width)
+        feat0 = self.extract_features(images, levels=1)[0]
+        cls_scores, bbox_deltas = self.rpn([feat0.permute(0, 3, 1, 2)])
+        obj = cls_scores[0].reshape(b, -1).float()              # [B, N]
+        rpn_dlt = bbox_deltas[0].reshape(b, -1, 4)              # [B, N, 4]
+        anchors = self.anchors(images.device)
+        gt_boxes = targets["boxes"].float()
+        gt_valid = targets["valid"].bool()
+        mask28 = targets["mask28"].float()
+        # Quirk mode (the reference's semantics): the RPN loss reads image
+        # 0's scores against the GT of the whole batch concatenated, the
+        # heads train on image 0. Fixed mode: every image does both.
+        s = slice(None) if c.heads_all_images else slice(0, 1)
+        if c.heads_all_images:
+            rpn_gt, rpn_valid = gt_boxes, gt_valid
+        else:
+            rpn_gt, rpn_valid = gt_boxes.reshape(1, -1, 4), \
+                gt_valid.reshape(1, -1)
+        full = c.decode_proposals and c.heads_all_images
+        match = self._match_anchors(rpn_gt, rpn_valid, full=full)
+        max_iou = match[0] if full else match
+        loss_rpn = rpn_loss_single(obj[s], rpn_valid, max_iou,
+                                   noise["rpn_pos"], noise["rpn_neg"], c)
+        props = training_proposals(
+            obj[s], anchors, img_size, noise["proposals"], c.train_pre_topk,
+            c.train_score_thresh, c.train_min_box_size, c.train_num_samples,
+            deltas=rpn_dlt[s] if c.decode_proposals else None)
+
+        mask_gt = None
+        if not c.heads_all_images and b > 1:
+            # Reference quirk: mask targets are re-matched against the
+            # whole batch's GT (mask_utils.py:88-108).
+            mask_gt = (rpn_gt, rpn_valid,
+                       mask28.reshape((1, -1) + mask28.shape[2:]))
+        t = match_head_targets(props.boxes, props.valid, gt_boxes[s],
+                               gt_valid[s], mask28[s], c, mask_gt=mask_gt)
+        rois = self._roi_align(feat0[s], props.boxes)         # [b', K, ...]
+        flat_rois = rois.reshape((-1,) + rois.shape[2:])
+        cls_logits, box_deltas = self.box_head(flat_rois)
+        flat_t = HeadTargets(*(x.reshape((-1,) + x.shape[2:]) for x in t))
+        losses = box_losses(cls_logits, box_deltas, flat_t)
+
+        m = c.mask_train_samples
+        order = None
+        if c.heads_all_images and 0 < m < c.train_num_samples:
+            # The mask head runs on the top m of each image's proposals,
+            # mask-fg first (stable: proposal order among equals). A row
+            # gather computes the JAX package's one-hot product exactly.
+            order = top_k_stable(t.mask_weight, m)[1]          # [B, m]
+            k = rois.shape[1]
+            mrois = take_rows(rois.reshape(b, k, -1), order)
+            mtargets = take_rows(t.mask_targets.reshape(b, k, -1), order)
+            mask_logits = self.mask_head(
+                mrois.reshape((-1,) + rois.shape[2:]))
+            losses["loss_mask"] = mask_loss_on(
+                mask_logits, mtargets.reshape((-1,) + mask28.shape[2:]),
+                torch.gather(t.mask_weight, 1, order).reshape(-1))
+        else:
+            losses["loss_mask"] = mask_loss(self.mask_head(flat_rois), flat_t)
+        losses["loss_rpn_cls"] = loss_rpn.mean()
+        if c.decode_proposals:
+            # Quirk mode regresses image 0's deltas on image 0's GT: a
+            # second, full match.
+            reg_match = match if full else self._match_anchors(
+                gt_boxes[s], gt_valid[s])
+            losses["loss_rpn_reg"] = rpn_reg_loss_from_match(
+                rpn_dlt[s], *reg_match, gt_valid[s], c).mean()
+        if record is not None:
+            pos, neg, _ = rpn_sample(max_iou, noise["rpn_pos"],
+                                     noise["rpn_neg"], c)
+            record.update(rpn_pos=pos, rpn_neg=neg, proposals=props.boxes,
+                          proposal_valid=props.valid)
+            if order is not None:
+                record["mask_subset"] = order
+        return losses
 
     @torch.no_grad()
     def inference_forward(self, images: torch.Tensor) -> Detections:
@@ -156,6 +300,20 @@ class CustomMaskRCNN(nn.Module):
 
     def forward(self, images: torch.Tensor) -> Detections:
         return self.inference_forward(images)
+
+
+def create_train_model(cfg: ModelConfig,
+                       generator: Optional[torch.Generator] = None,
+                       device=None) -> CustomMaskRCNN:
+    """Build the model for training: weights drawn from `generator`
+    (seed 0 when None), f32 parameters and batch-norm statistics (the
+    master copy an optimizer updates), channels_last memory, train mode,
+    on `device` (the card unless the caller passes "cpu").
+    `train_forward` computes in cfg.compute_dtype."""
+    dev = resolve_device(device)
+    model = CustomMaskRCNN(cfg, generator)
+    model.to(device=dev, memory_format=torch.channels_last)
+    return model.train()
 
 
 def create_model(cfg: ModelConfig,

@@ -2,9 +2,9 @@
 
 torchvision's stem + BasicBlock stages, NCHW inside (the model keeps
 activations in channels_last memory, so they are NHWC in memory).
-Batch norm runs with its running statistics (eval mode, eps 1e-5): this
-is the serving slice. Module names mirror the JAX parameter tree
-(`conv1`, `bn1`, `layer1_0/conv1/conv`, ...). The JAX package's
+Batch norm has flax's semantics (`BatchNorm`). Module names mirror the
+JAX parameter tree (`conv1`, `bn1`, `layer1_0/conv1/conv`, ...). The
+JAX package's
 space-to-depth stem (`stem_s2d`) computes the same function as the
 plain 7x7/2 stem, so the port has only the plain one.
 """
@@ -20,13 +20,40 @@ from torch import nn
 from livecell_tpu_torch.models.init import kaiming_normal_fan_out
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` on NCHW
+    (livecell_tpu/models/resnet.py:36-38,166-168).
+
+    Eval mode, or `frozen` (the model's frozen_bn): the running
+    statistics. Train mode: the batch's mean and biased variance, taken
+    in f32 whatever the activations' dtype, and the running statistics
+    move as running = 0.9 * running + 0.1 * batch with the biased
+    variance (nn.BatchNorm2d would move running_var with the unbiased
+    one). The output keeps the input's dtype."""
+
+    frozen = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.frozen:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       correction=0)
+            self.running_mean.mul_(0.9).add_(0.1 * mean)
+            self.running_var.mul_(0.9).add_(0.1 * var)
+        return y
+
+
 class ConvBN(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int, stride: int,
                  generator: torch.Generator):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2,
                               bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn = BatchNorm(cout, eps=1e-5)
         kaiming_normal_fan_out(self.conv.weight, kernel * kernel * cout,
                                generator)
 
@@ -60,7 +87,7 @@ class ResNetBackbone(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         kaiming_normal_fan_out(self.conv1.weight, 7 * 7 * 64, generator)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        self.bn1 = BatchNorm(64, eps=1e-5)
         self.stage_names = []
         cin = 64
         for i, (depth, width) in enumerate(zip(depths, widths)):

@@ -1,26 +1,28 @@
 """RoIAlign through the hand-written Hopper kernels of csrc/roi_align.cu
-(counterpart of livecell_tpu/ops/pallas_roi_align.py, forward only).
+(counterpart of livecell_tpu/ops/pallas_roi_align.py).
 
-Two kernels, each with a wrapper, a plain PyTorch version and a launch
+Three kernels, each with a wrapper, a plain PyTorch version and a launch
 counter (`<wrapper>.launches`, raised by one per kernel launch):
 
   K1 `roi_weights`   boxes [B,K,4] f32 -> Wy [B,K,n,H], Wx [B,K,n,W]:
      the pooled bilinear weights (replaces `_weights_kernel`).
   K2 `roi_align_fwd` features [B,H,W,C], Wy, Wx -> [B,K,n,n,C]
      (replaces `_fwd_kernel`).
+  K3 `roi_align_bwd` g [B,K,n,n,C], Wy, Wx -> dfeatures [B,H,W,C]
+     (replaces `_bwd_kernel`).
 
 A wrapper given CPU tensors computes its plain version; given CUDA
 tensors it launches its kernel or raises on a dtype, shape or layout
 the kernel does not take. There is no fallback from one to the other.
-`roi_align` composes the two under the model's `roi_backend`.
+`roi_align` composes them under the model's `roi_backend` through
+`RoIAlignFunction`, whose backward is K3 on K1's weights (the custom
+VJP's residuals, pallas_roi_align.py:269-277); boxes get no gradient.
 
 bf16 features take bf16 weights and give bf16 output with the row
 contraction rounded to bf16, where the Pallas kernel rounds; f32
 features keep everything in f32 (the JAX einsum path at "highest").
-
-No autograd is registered for the kernel path: this is the serving
-slice. The training slice adds the backward kernel as an
-`autograd.Function` that reuses K1's weight tensors.
+The same holds backward: bf16 g, u = sum_q Wx g rounded to bf16, dF
+summed in f32 and rounded once.
 """
 
 from __future__ import annotations
@@ -31,10 +33,10 @@ from typing import Tuple
 
 import torch
 
+from livecell_tpu_torch.config import ROUTES
 from livecell_tpu_torch.ops import _build
 
 _DTYPES = (torch.bfloat16, torch.float32)
-BACKENDS = ("auto", "kernel", "plain")
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,6 +49,9 @@ def _lib() -> ctypes.CDLL:
     lib.livecell_roi_align_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                            p]
     lib.livecell_roi_align_fwd.restype = i
+    lib.livecell_roi_align_bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
+                                           p]
+    lib.livecell_roi_align_bwd.restype = i
     lib.livecell_cuda_error_string.argtypes = [i]
     lib.livecell_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -199,6 +204,56 @@ roi_align_fwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K3: the backward of K2 with respect to the features.
+# ---------------------------------------------------------------------------
+
+def roi_align_bwd_plain(g: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
+                        feat_hw: Tuple[int, int]) -> torch.Tensor:
+    """Plain version of K3: u = sum_q Wx g (f32, rounded to bf16 for bf16
+    g), then dF = sum_k sum_p Wy u in f32, cast to g's dtype."""
+    u = torch.einsum("bkqw,bkpqc->bkpwc", wx.float(), g.float())
+    if g.dtype == torch.bfloat16:
+        u = u.to(torch.bfloat16).float()
+    d = torch.einsum("bkph,bkpwc->bhwc", wy.float(), u)
+    return d.to(g.dtype)
+
+
+def roi_align_bwd(g: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
+                  feat_hw: Tuple[int, int]) -> torch.Tensor:
+    """K3 wrapper: g [B,K,n,n,C], Wy [B,K,n,H], Wx [B,K,n,W] of one dtype
+    (bf16 or f32) -> dfeatures [B,H,W,C] in that dtype."""
+    if g.device.type == "cpu":
+        return roi_align_bwd_plain(g, wy, wx, feat_hw)
+    dev = _require_cuda(g, wy, wx)
+    b, k, n, _, c = g.shape
+    h, w = feat_hw
+    if g.dtype not in _DTYPES or wy.dtype != g.dtype or wx.dtype != g.dtype:
+        raise ValueError(f"roi_align_bwd kernel takes bf16 or f32 g with "
+                         f"weights of the same dtype, got {g.dtype}, "
+                         f"{wy.dtype}, {wx.dtype}")
+    if tuple(g.shape) != (b, k, n, n, c) or tuple(wy.shape) != (b, k, n, h) \
+            or tuple(wx.shape) != (b, k, n, w) or n > 16:
+        raise ValueError(f"g {tuple(g.shape)}, weights {tuple(wy.shape)}, "
+                         f"{tuple(wx.shape)} do not fit a {h}x{w} map with "
+                         f"at most 16 bins")
+    # The kernel keeps a feature row's f32 sums for 128 channels, and a
+    # ROI's Wx rows, in shared memory.
+    if (w * 128 + n * w + n * 128) * 4 + 8 * w > 200 * 1024:
+        raise ValueError(f"feature map width {w} too large for the "
+                         f"roi_align_bwd kernel's shared-memory row")
+    dfeat = torch.empty((b, h, w, c), dtype=g.dtype, device=dev)
+    code = _lib().livecell_roi_align_bwd(
+        g.data_ptr(), wy.data_ptr(), wx.data_ptr(), dfeat.data_ptr(),
+        b, k, n, h, w, c, int(g.dtype == torch.bfloat16), _stream(dev))
+    _check(code, "roi_align_bwd")
+    roi_align_bwd.launches += 1
+    return dfeat
+
+
+roi_align_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # The composed op.
 # ---------------------------------------------------------------------------
 
@@ -213,23 +268,50 @@ def roi_align_plain(features: torch.Tensor, boxes: torch.Tensor,
     return roi_align_fwd_plain(features, wy, wx)
 
 
+class RoIAlignFunction(torch.autograd.Function):
+    """K1 then K2 forward, K3 backward on K1's weights (or the three
+    plain versions when `plain`). Boxes get no gradient, as in the
+    custom VJP (pallas_roi_align.py:346). Autocast is off inside: the
+    kernels and their plain versions take the features' own dtype."""
+
+    @staticmethod
+    def forward(ctx, features, boxes, out_size, spatial_scale,
+                sampling_ratio, plain):
+        weights = roi_weights_plain if plain else roi_weights
+        fwd = roi_align_fwd_plain if plain else roi_align_fwd
+        with torch.autocast(features.device.type, enabled=False):
+            wy, wx = weights(boxes, features.shape[1:3], out_size,
+                             sampling_ratio, spatial_scale, features.dtype)
+            out = fwd(features, wy, wx)
+        ctx.save_for_backward(wy, wx)
+        ctx.plain = plain
+        ctx.feat_hw = tuple(features.shape[1:3])
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        wy, wx = ctx.saved_tensors
+        bwd = roi_align_bwd_plain if ctx.plain else roi_align_bwd
+        with torch.autocast(g.device.type, enabled=False):
+            dfeat = bwd(g.contiguous(), wy, wx, ctx.feat_hw)
+        return dfeat, None, None, None, None, None
+
+
 def roi_align(features: torch.Tensor, boxes: torch.Tensor,
               out_size: int = 7, spatial_scale: float = 0.25,
               sampling_ratio: int = 2, backend: str = "auto"
               ) -> torch.Tensor:
-    """Batched RoIAlign [B,H,W,C], [B,K,4] -> [B,K,s,s,C].
+    """Batched RoIAlign [B,H,W,C], [B,K,4] -> [B,K,s,s,C], differentiable
+    in the features.
 
-    backend "auto": K1 and K2 through their wrappers (kernels on CUDA
+    backend "auto": K1, K2 and K3 through their wrappers (kernels on CUDA
     tensors, plain versions on CPU tensors); "kernel": the same, and CPU
-    tensors are refused; "plain": `roi_align_plain` on any device."""
-    if backend not in BACKENDS:
-        raise ValueError(f"roi_backend must be one of {BACKENDS}, "
+    tensors are refused; "plain": the plain versions on any device."""
+    if backend not in ROUTES:
+        raise ValueError(f"roi_backend must be one of {ROUTES}, "
                          f"got {backend!r}")
-    if backend == "plain":
-        return roi_align_plain(features, boxes, out_size, spatial_scale,
-                               sampling_ratio)
     if backend == "kernel" and features.device.type != "cuda":
         raise ValueError("roi_backend='kernel' needs CUDA tensors")
-    wy, wx = roi_weights(boxes, features.shape[1:3], out_size,
-                         sampling_ratio, spatial_scale, features.dtype)
-    return roi_align_fwd(features, wy, wx)
+    return RoIAlignFunction.apply(features, boxes, out_size, spatial_scale,
+                                  sampling_ratio, backend == "plain")

@@ -16,13 +16,15 @@ from livecell_tpu_torch.ops.interp import paste_matrices, resize_weight_matrix
 def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]
                     ) -> torch.Tensor:
     """F.interpolate(mode='bilinear', align_corners=False) for NHWC
-    tensors [..., H, W, C], computed in f32 with constant matrices."""
+    tensors [..., H, W, C], computed in f32 with constant matrices (also
+    under autocast, as the JAX package's einsums run at "highest")."""
     h, w = x.shape[-3], x.shape[-2]
     oh, ow = out_hw
     wy = torch.from_numpy(resize_weight_matrix(h, oh)).to(x.device)
     wx = torch.from_numpy(resize_weight_matrix(w, ow)).to(x.device)
-    t = torch.einsum("yh,...hwc->...ywc", wy, x.float())
-    out = torch.einsum("xw,...ywc->...yxc", wx, t)
+    with torch.autocast(x.device.type, enabled=False):
+        t = torch.einsum("yh,...hwc->...ywc", wy, x.float())
+        out = torch.einsum("xw,...ywc->...yxc", wx, t)
     return out.to(x.dtype)
 
 

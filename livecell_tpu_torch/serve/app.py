@@ -4,44 +4,36 @@ InferenceEngine, and of serve/visualize.py:load_model).
 Tile-sized inputs run one forward; frame-sized inputs are cut into the
 standard 5x5 overlapping tiles, run as one batch and stitched. A port
 checkpoint is a directory holding `model.pt` (a `torch.save`d state
-dict) and the `model_config.json` sidecar, the JAX package's format.
+dict) and the `model_config.json` sidecar, the JAX package's format
+(train/checkpoint.py writes both, with the optimizer's state beside
+them in a training checkpoint).
 """
 
 from __future__ import annotations
 
-import json
-import os
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from livecell_tpu_torch.config import (
-    Config, TileConfig, apply_dense_flags, model_config_from_dict,
-    model_config_to_dict)
+from livecell_tpu_torch.config import Config, TileConfig, apply_dense_flags
 from livecell_tpu_torch.device import resolve_device
 from livecell_tpu_torch.models.mask_rcnn import CustomMaskRCNN, create_model
 from livecell_tpu_torch.ops.mask_ops import paste_masks
 from livecell_tpu_torch.serve.stitch import make_frame_predictor, tile_position
+from livecell_tpu_torch.train import checkpoint
 
 
 def save_model(model: CustomMaskRCNN, path: str) -> None:
-    """Write a port checkpoint directory."""
-    os.makedirs(path, exist_ok=True)
-    torch.save(model.state_dict(), os.path.join(path, "model.pt"))
-    with open(os.path.join(path, "model_config.json"), "w") as f:
-        json.dump(model_config_to_dict(model.cfg), f, indent=1)
+    """Write a port checkpoint directory (the model only)."""
+    checkpoint.save(path, model)
 
 
 def load_model(path: str, device=None) -> CustomMaskRCNN:
     """Load a port checkpoint directory onto `device` (the card unless
     the caller passes "cpu")."""
-    dev = resolve_device(device)
-    with open(os.path.join(path, "model_config.json")) as f:
-        cfg = model_config_from_dict(json.load(f))
-    model = create_model(cfg, device=dev)
-    sd = torch.load(os.path.join(path, "model.pt"), map_location=dev,
-                    weights_only=True)
+    cfg, sd = checkpoint.load_model_state(path, device)
+    model = create_model(cfg, device=device)
     model.load_state_dict(sd, strict=True)
     return model
 

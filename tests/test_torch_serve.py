@@ -9,12 +9,16 @@ Binary masks come from thresholding interpolated probabilities at 0.5,
 where f32 rounding can flip a pixel: at most 0.1% of pixels may differ.
 """
 
+import json
+
 import jax
 import numpy as np
 import pytest
 import torch
 
+from livecell_tpu.config import ModelConfig as JaxModelConfig
 from livecell_tpu.config import TileConfig as JaxTileConfig
+from livecell_tpu.config import model_config_to_dict as jax_config_to_dict
 from livecell_tpu.ops.mask_ops import paste_masks as jax_paste_masks
 from livecell_tpu.serve.stitch import (
     make_frame_predictor as jax_make_frame_predictor)
@@ -174,6 +178,29 @@ def test_engine_from_checkpoint(tmp_path, frame):
     ref = InferenceEngine(model=port_model(), tile_cfg=TCFG, device="cpu",
                           dets=8)
     for a, b in zip(eng.predict(frame, SCORE), ref.predict(frame, SCORE)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_jax_sidecar_route_names_load_and_serve(tmp_path, frame):
+    """A JAX checkpoint's sidecar names the JAX routes (written by
+    train_custom.py --roi_backend pallas and the like); the port maps
+    them onto its own ("auto", exact top-k) and serves."""
+    jcfg = JaxModelConfig(**CFG_KW, roi_backend="pallas",
+                          match_backend="pallas", topk_backend="approx")
+    path = tmp_path / "jax_ckpt"
+    save_model(port_model(), str(path))
+    (path / "model_config.json").write_text(
+        json.dumps(jax_config_to_dict(jcfg)))
+    model = load_model(str(path), device="cpu")
+    assert (model.cfg.roi_backend, model.cfg.match_backend,
+            model.cfg.topk_backend) == ("auto", "auto", "exact")
+    tile = frame[:TCFG.tile_height, :TCFG.tile_width]
+    got = InferenceEngine(model=model, tile_cfg=TCFG,
+                          device="cpu").predict(tile, SCORE)
+    want = InferenceEngine(model=port_model(), tile_cfg=TCFG,
+                           device="cpu").predict(tile, SCORE)
+    assert len(got[1]) >= 2
+    for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
 
 
