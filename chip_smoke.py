@@ -36,7 +36,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and with their plain versions: equal selections, losses and every
      parameter's gradient within the stated tolerances;
   8. checkpoint: the T2 model saved by train/checkpoint.py, loaded by
-     serve/app.py:load_model, serves a tile.
+     serve/app.py:load_model, serves a tile;
+  9. transfer kernels: K5 (ms_roi_align_fwd) and K6 (ms_roi_align_bwd)
+     against their plain versions on a P2-P5 pyramid of the 800x1088
+     canvas (256 channels) at the training shapes (4 images, K = 512 at
+     7x7 and K = 128 at 14x14) and the serving shapes (25 tiles, K =
+     1,000 at 7x7 and K = 100 at 14x14), in bf16 and f32, and on
+     elongated boxes; K4 (full) at 217,413 anchors x 4 images x 128 GT;
+     timed with CUDA events and the profiler;
+ 10. transfer serving: the full-width transfer R50-FPN Mask R-CNN
+     (TransferConfig defaults, bf16, random weights from a seed) serves a
+     704x520 frame through make_frame_predictor: first call, steady
+     median of 5, K5 launched twice per forward;
+ 11. transfer training (T3): bench.py's transfer step (batch 4, SGD 5e-3,
+     momentum 0.9, clip 10) with f32 master weights and bf16 compute for
+     3 warm-up and 10 timed steps: finite losses, K4/K5/K6 launched
+     1/2/2 times per step; one profiled step, one stage-1 step (backbone,
+     FPN and RPN frozen);
+ 12. transfer end to end: one f32 step at batch 1 with the kernels and
+     with their plain versions: equal selections, losses and gradients
+     within the stated tolerances.
 
 Prints the kernels' JSON line, then as the last line
 {"ok": true, "device": {...}}. Writes nothing outside the checkout
@@ -48,6 +67,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -289,6 +309,57 @@ def k3_library(g: torch.Tensor, wy: torch.Tensor,
     return torch.einsum("bkph,bkqw,bkpqc->bhwc", wy, wx, g)
 
 
+def k4_case(cm, anchors: torch.Tensor, gt: torch.Tensor, v: torch.Tensor,
+            full: bool, label: str) -> dict:
+    """K4 (full or max-only) against its plain version on anchors [N, 4]
+    and GT [B, I, 4], checked and timed."""
+    b, i = v.shape
+    n = anchors.shape[0]
+    got = cm.match_anchors(anchors, gt, v, full)
+    want = cm.match_anchors_plain(anchors, gt, v, full)
+    if not full:
+        got, want = (got,), (want,)
+    torch.cuda.synchronize()
+    err_iou = (got[0] - want[0]).abs().max().item()
+    ok = err_iou <= 1e-6
+    err = err_iou
+    if full:
+        err_tgt = (got[1] - want[1]).abs().max().item()
+        rel_tgt = ((got[1] - want[1]).abs()
+                   / want[1].abs().clamp(min=1.0)).max().item()
+        best_eq = torch.equal(got[2], want[2])
+        ok = ok and rel_tgt <= 1e-5 and best_eq
+        err = max(err, err_tgt)
+        log(f"[kernels] K4 {label} full: max_iou err {err_iou:.3g} "
+            f"(tol 1e-6), targets err {err_tgt:.3g} (tol 1e-5 "
+            f"relative, got {rel_tgt:.3g}), best anchor equal {best_eq}")
+    else:
+        log(f"[kernels] K4 {label} max-only: max_iou err {err_iou:.3g} "
+            f"(tol 1e-6)")
+    if not ok:
+        raise AssertionError(f"K4 disagrees with plain at {label}")
+    del got, want
+    pairs = b * n * i
+    ops = (20.0 if full else 16.0) * pairs
+    nbytes = n * 16 + b * i * 17 + b * n * 4 + (
+        b * n * 16 + b * i * 8 if full else 0)
+    bms, bby = bound(nbytes, ops)
+    case = dict(
+        name="match_anchors", shape=dict(B=b, N=n, I=i, full=full),
+        max_err=err, tol=1e-6 if not full else 1e-5,
+        ms=time_ms(lambda: cm.match_anchors(anchors, gt, v, full), runs=11),
+        plain_ms=time_ms(
+            lambda: cm.match_anchors_plain(anchors, gt, v, full),
+            warmup=1, runs=3, calls=2),
+        library_ms=None,
+        kernel_ms=kernel_ms(lambda: cm.match_anchors(anchors, gt, v, full),
+                            "match_kernel"),
+        bound_ms=bms, bound_by=bby, bytes=nbytes, operations=ops)
+    torch.cuda.empty_cache()
+    return case
+
+
+
 def phase_train_kernels(cra, cm) -> list:
     """K4 (full and max-only), K3 (bf16 and f32), and K1/K2 (bf16) against
     their plain versions at the training shapes."""
@@ -307,52 +378,8 @@ def phase_train_kernels(cra, cm) -> list:
              valid.reshape(1, -1))):
         gt = torch.from_numpy(gt).to(dev)
         v = torch.from_numpy(v).to(dev)
-        b, i = v.shape
         for full in (True, False):
-            got = cm.match_anchors(anchors, gt, v, full)
-            want = cm.match_anchors_plain(anchors, gt, v, full)
-            if not full:
-                got, want = (got,), (want,)
-            torch.cuda.synchronize()
-            err_iou = (got[0] - want[0]).abs().max().item()
-            ok = err_iou <= 1e-6
-            err = err_iou
-            if full:
-                err_tgt = (got[1] - want[1]).abs().max().item()
-                rel_tgt = ((got[1] - want[1]).abs()
-                           / want[1].abs().clamp(min=1.0)).max().item()
-                best_eq = torch.equal(got[2], want[2])
-                ok = ok and rel_tgt <= 1e-5 and best_eq
-                err = max(err, err_tgt)
-                log(f"[kernels] K4 {label} full: max_iou err {err_iou:.3g} "
-                    f"(tol 1e-6), targets err {err_tgt:.3g} (tol 1e-5 "
-                    f"relative, got {rel_tgt:.3g}), best anchor equal "
-                    f"{best_eq}")
-            else:
-                log(f"[kernels] K4 {label} max-only: max_iou err "
-                    f"{err_iou:.3g} (tol 1e-6)")
-            if not ok:
-                raise AssertionError(f"K4 disagrees with plain at {label}")
-            del got, want
-            pairs = b * n * i
-            ops = (20.0 if full else 16.0) * pairs
-            nbytes = n * 16 + b * i * 17 + b * n * 4 + (
-                b * n * 16 + b * i * 8 if full else 0)
-            bms, bby = bound(nbytes, ops)
-            cases.append(dict(
-                name="match_anchors", shape=dict(B=b, N=n, I=i, full=full),
-                max_err=err, tol=1e-6 if not full else 1e-5,
-                ms=time_ms(lambda: cm.match_anchors(anchors, gt, v, full),
-                           runs=11),
-                plain_ms=time_ms(
-                    lambda: cm.match_anchors_plain(anchors, gt, v, full),
-                    warmup=1, runs=3, calls=2),
-                library_ms=None,
-                kernel_ms=kernel_ms(
-                    lambda: cm.match_anchors(anchors, gt, v, full),
-                    "match_kernel"),
-                bound_ms=bms, bound_by=bby, bytes=nbytes, operations=ops))
-            torch.cuda.empty_cache()
+            cases.append(k4_case(cm, anchors, gt, v, full, label))
     # K3 at the training RoIAlign shapes: fixed mode [32, 128] and quirk
     # mode [1, 128] proposals on the 56x76x256 map.
     gen = torch.Generator().manual_seed(SEED + 2)
@@ -687,6 +714,383 @@ def profile_request(engine, image) -> dict:
     return profile_call(lambda: engine.predict(image, score_threshold=0.0))
 
 
+# ---------------------------------------------------------------------------
+# The transfer slice (phases 9-12).
+# ---------------------------------------------------------------------------
+# P2..P5 of the 800x1088 canvas, 256 channels.
+T_PYRAMID = ((200, 272), (100, 136), (50, 68), (25, 34))
+T_BATCH, T_POOL = 4, 16
+# tests/test_pallas_ms_roi.py:76-96's elongated boxes, on the canvas.
+T_ELONGATED = [[16.0, 40.0, 1000.0, 72.0], [120.0, 8.0, 152.0, 620.0],
+               [0.0, 0.0, 1086.0, 800.0], [400.0, 200.0, 560.0, 360.0]]
+
+
+def transfer_boxes(b: int, k: int, gen: torch.Generator) -> torch.Tensor:
+    """[B, K, 4] boxes on the 800x1086 canvas: sides log-uniform in
+    [8, 900] px, aspect ratios log-uniform in [1/8, 8], centres up to 50
+    px past the border, so that every level gets ROIs, thin and long
+    ones too."""
+    u = torch.rand((b, k, 4), generator=gen)
+    side = torch.exp(math.log(8.0) + u[..., 0] * math.log(900.0 / 8.0))
+    ar = torch.exp((u[..., 1] - 0.5) * 2.0 * math.log(8.0))
+    bw, bh = side * ar.sqrt(), side / ar.sqrt()
+    cx = u[..., 2] * 1186.0 - 50.0
+    cy = u[..., 3] * 900.0 - 50.0
+    return torch.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2],
+                       dim=-1).contiguous()
+
+
+def ms_roi_cases(cms, feats: list, boxes: torch.Tensor, out_size: int,
+                 label: str, time_plain: bool = True) -> list:
+    """K5 and K6 against their plain versions on one pyramid and one box
+    set, checked and timed. Bound: K5 moves its output, the boxes and
+    levels, and every feature pixel a tap touches once; K6 reads g, the
+    boxes and levels and writes the four maps' gradients whole."""
+    dtype = feats[0].dtype
+    esz = feats[0].element_size()
+    b, k = boxes.shape[:2]
+    hw = [tuple(f.shape[1:3]) for f in feats]
+    levels = cms.assign_levels(boxes)
+    out = cms.ms_roi_align_fwd(feats, boxes, levels, out_size)
+    ref = cms.ms_roi_align_fwd_plain(feats, boxes, levels, out_size)
+    err5 = (out.float() - ref.float()).abs().max().item()
+    # K2's and K3's tolerances: bf16 rounds the row contraction (u) and
+    # the output after f32 sums in another order, which can flip a
+    # rounding: 2 bf16 ulps at the magnitude; f32 reassociation, 1e-5.
+    rel = 2 * 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    tol5 = rel * max(ref.float().abs().max().item(), 1.0)
+    g = torch.randn(out.shape, device=out.device).to(dtype)
+    dfs = cms.ms_roi_align_bwd(g, boxes, levels, hw)
+    drefs = cms.ms_roi_align_bwd_plain(g, boxes, levels, hw)
+    err6 = max((d.float() - r.float()).abs().max().item()
+               for d, r in zip(dfs, drefs))
+    tol6 = min(rel * max(r.float().abs().max().item(), 1.0) for r in drefs)
+    torch.cuda.synchronize()
+    per_level = [int((levels == i).sum()) for i in range(4)]
+    name = f"{label} B={b} K={k} s={out_size} {str(dtype).split('.')[-1]}"
+    log(f"[kernels] {name} ROIs per level {per_level}: K5 max_err "
+        f"{err5:.3g} (tol {tol5:.3g}), K6 max_err {err6:.3g} (tol "
+        f"{tol6:.3g})")
+    if not (err5 <= tol5 and err6 <= tol6):
+        raise AssertionError(f"K5/K6 disagree with plain at {name}")
+    del out, ref, dfs, drefs
+
+    # What these inputs need: each level's weights (zero for the other
+    # levels' ROIs), their non-zero taps and the pixels they touch.
+    ops5 = ops6 = 0.0
+    touched = 0
+    for lvl, (h, w) in enumerate(hw):
+        wy, wx = cms.level_weights(boxes, levels, lvl, (h, w), out_size, 2,
+                                   dtype)
+        ops5 += k2_operations(wy, wx, C)
+        ops6 += k3_operations(wy, wx, C)
+        rows = (wy != 0).any(dim=2).float()                # [B, K, H]
+        cols = (wx != 0).any(dim=2).float()                # [B, K, W]
+        touched += int((torch.einsum("bkh,bkw->bhw", rows, cols) > 0).sum())
+        del wy, wx, rows, cols
+    side = b * k * (16 + 4)
+    bytes5 = b * k * out_size * out_size * C * esz + touched * C * esz + side
+    bytes6 = b * k * out_size * out_size * C * esz + side + sum(
+        b * h * w * C * esz for h, w in hw)
+    shape = dict(B=b, K=k, s=out_size, C=C, dtype=str(dtype), case=label,
+                 rois_per_level=per_level)
+    cases = []
+    for kname, fn, plain, nbytes, ops, err, tol in (
+        ("ms_roi_align_fwd",
+         lambda: cms.ms_roi_align_fwd(feats, boxes, levels, out_size),
+         lambda: cms.ms_roi_align_fwd_plain(feats, boxes, levels, out_size),
+         bytes5, ops5, err5, tol5),
+        ("ms_roi_align_bwd",
+         lambda: cms.ms_roi_align_bwd(g, boxes, levels, hw),
+         lambda: cms.ms_roi_align_bwd_plain(g, boxes, levels, hw),
+         bytes6, ops6, err6, tol6),
+    ):
+        bms, bby = bound(nbytes, ops)
+        cases.append(dict(
+            name=kname, shape=shape, max_err=err, tol=tol,
+            ms=time_ms(fn, runs=11, calls=5),
+            plain_ms=time_ms(plain, warmup=1, runs=3, calls=1)
+            if time_plain else None,
+            library_ms=None,
+            kernel_ms=kernel_ms(fn, kname + "_kernel", calls=5),
+            bound_ms=bms, bound_by=bby, bytes=nbytes, operations=ops))
+        torch.cuda.empty_cache()
+    return cases
+
+
+def transfer_gt(b: int, slots: int, rng: np.random.Generator):
+    """bench.py's transfer targets (bench.py:256-276): 40 boxes of 12-55
+    px per 224x304 tile in `slots` slots, uint8 mask28."""
+    boxes = np.zeros((b, slots, 4), np.float32)
+    for bi in range(b):
+        x1, y1 = rng.uniform(0, 304 - 60, 40), rng.uniform(0, 224 - 60, 40)
+        bw, bh = rng.uniform(12, 55, 40), rng.uniform(12, 55, 40)
+        boxes[bi, :40] = np.stack([x1, y1, x1 + bw, y1 + bh], axis=1)
+    valid = np.zeros((b, slots), bool)
+    valid[:, :40] = True
+    mask28 = (rng.uniform(size=(b, slots, 28, 28)) > 0.5).astype(
+        np.uint8) * 255
+    return boxes, valid, mask28
+
+
+def phase_transfer_kernels(cms, cm) -> list:
+    """K5/K6 at the transfer model's training and serving shapes in bf16
+    and f32 and on the elongated boxes; K4 full at 217,413 anchors."""
+    from livecell_tpu_torch.config import TransferConfig
+    from livecell_tpu_torch.models.transfer import (
+        pyramid_shapes, torchvision_anchors)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 9)
+    cases = []
+    for label, b, shapes in (
+            ("train", T_BATCH, ((512, 7), (128, 14))),
+            ("serve", 25, ((1000, 7), (100, 14))),
+            ("elongated", 1, ((4, 7), (4, 14)))):
+        pyr32 = [torch.randn((b, h, w, C), generator=gen).to(dev)
+                 for h, w in T_PYRAMID]
+        for k, s in shapes:
+            boxes = (torch.tensor([T_ELONGATED]) if label == "elongated"
+                     else transfer_boxes(b, k, gen)).to(dev)
+            for dtype in (torch.bfloat16, torch.float32):
+                cases += ms_roi_cases(cms, [f.to(dtype) for f in pyr32],
+                                      boxes, s, label)
+        del pyr32
+        torch.cuda.empty_cache()
+    # K4 at the transfer model's 217,413 anchors, bench.py's batch.
+    cfg = TransferConfig()
+    anchors = torch.from_numpy(np.concatenate(torchvision_anchors(
+        pyramid_shapes(cfg.image_height, cfg.image_width), cfg.anchor_sizes,
+        cfg.anchor_ratios, cfg.level_strides))).to(dev)
+    boxes, valid, _ = transfer_gt(T_BATCH, cfg.max_instances,
+                                  np.random.default_rng(SEED + 3))
+    scale = np.float32([cfg.resized_width / cfg.tile_width,
+                        cfg.image_height / cfg.tile_height] * 2)
+    cases.append(k4_case(cm, anchors, torch.from_numpy(boxes * scale).to(dev),
+                         torch.from_numpy(valid).to(dev), True,
+                         f"transfer B={T_BATCH} I={cfg.max_instances}"))
+    for c in cases:
+        log("[kernels]", json.dumps(c))
+    return cases
+
+
+def frame_tiles(frame: np.ndarray, tcfg) -> np.ndarray:
+    """The frame's overlapping tiles [T, th, tw, 3] (serve/app.py)."""
+    from livecell_tpu_torch.serve.stitch import tile_position
+    tiles = np.zeros((tcfg.num_tiles, tcfg.tile_height, tcfg.tile_width, 3),
+                     np.uint8)
+    for t in range(tcfg.num_tiles):
+        c0, r0 = tile_position(t, tcfg.tiles_per_row)
+        x0, y0 = c0 * tcfg.mini_tile_width, r0 * tcfg.mini_tile_height
+        patch = frame[y0:y0 + tcfg.tile_height, x0:x0 + tcfg.tile_width]
+        tiles[t, :patch.shape[0], :patch.shape[1]] = patch
+    return tiles
+
+
+def phase_transfer_serve(frame: np.ndarray, tcfg) -> dict:
+    """(d) A frame through make_frame_predictor over the full-width
+    transfer model: first call with the counters zeroed just before it,
+    then the steady median of 5 and one profiled request."""
+    from livecell_tpu_torch.config import TransferConfig
+    from livecell_tpu_torch.models.transfer import create_transfer_model
+    from livecell_tpu_torch.ops import cuda_ms_roi_align as cms
+    from livecell_tpu_torch.serve.stitch import make_frame_predictor
+
+    cfg = TransferConfig()
+    model = create_transfer_model(cfg, torch.Generator().manual_seed(SEED))
+    run = make_frame_predictor(model, tcfg, score_threshold=0.0)
+    tiles = frame_tiles(frame, tcfg)
+    cms.ms_roi_align_fwd.launches = cms.ms_roi_align_bwd.launches = 0
+    t0 = time.perf_counter()
+    det = run(tiles)
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    launches = {"ms_roi_align_fwd": cms.ms_roi_align_fwd.launches,
+                "ms_roi_align_bwd": cms.ms_roi_align_bwd.launches}
+    if launches != {"ms_roi_align_fwd": 2, "ms_roi_align_bwd": 0}:
+        raise AssertionError(f"transfer serve: launches {launches}, "
+                             f"expected 2 K5 per forward")
+    pad = (cfg.tile_width - tcfg.tile_width, cfg.tile_height
+           - tcfg.tile_height)
+    if not (np.isfinite(det.boxes).all() and np.isfinite(det.scores).all()
+            and det.masks.shape == (len(det.boxes), tcfg.tile_height,
+                                    tcfg.tile_width)
+            and ((det.scores >= 0) & (det.scores <= 1)).all()
+            and (det.boxes[:, 2] <= tcfg.frame_width + pad[0] + 1e-3).all()
+            and (det.boxes[:, 3] <= tcfg.frame_height + pad[1] + 1e-3).all()
+            and (det.boxes >= 0).all()):
+        raise AssertionError("transfer serve: malformed output")
+    steady = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run(tiles)
+        torch.cuda.synchronize()
+        steady.append((time.perf_counter() - t0) * 1e3)
+    res = dict(request="d: frame, transfer R50-FPN", first_ms=first,
+               steady_ms=statistics.median(steady), detections=len(det.boxes),
+               launches=launches, profile=profile_call(lambda: run(tiles)))
+    log("[serve]", json.dumps(res))
+    return res
+
+
+def transfer_pool(cfg, dev):
+    """T_POOL synthetic tiles (bench.py's transfer batch) on `dev`."""
+    rng = np.random.default_rng(SEED + 4)
+    images = (rng.uniform(size=(T_POOL, cfg.tile_height, cfg.tile_width, 3))
+              * 255).astype(np.uint8)
+    boxes, valid, mask28 = transfer_gt(T_POOL, cfg.max_instances, rng)
+    t = {"boxes": boxes, "valid": valid, "mask28": mask28}
+    return (torch.from_numpy(images).to(dev),
+            {k: torch.from_numpy(v).to(dev) for k, v in t.items()})
+
+
+def pool_batch(pool, i: int, batch: int):
+    images, targets = pool
+    idx = (torch.arange(batch, device=images.device) + i * batch) % len(images)
+    return images[idx], {k: v[idx] for k, v in targets.items()}
+
+
+def phase_transfer_train() -> dict:
+    """(T3) bench.py's transfer step: T_WARMUP + T_TIMED steps at batch 4
+    from weights of the seed; the counters are zeroed just before the
+    timed steps and read just after. Then one profiled step and one
+    stage-1 step (backbone, FPN and RPN frozen)."""
+    from livecell_tpu_torch.config import TransferConfig
+    from livecell_tpu_torch.models.transfer import create_transfer_model
+    from livecell_tpu_torch.ops import cuda_match as cm
+    from livecell_tpu_torch.ops import cuda_ms_roi_align as cms
+    from livecell_tpu_torch.parallel.train_step import make_step_fn
+    from livecell_tpu_torch.train.train_transfer import (
+        FROZEN_STAGE1, stage_optimizer)
+
+    cfg = TransferConfig()
+    model = create_transfer_model(cfg, torch.Generator().manual_seed(SEED),
+                                  device="cuda", train=True)
+    pool = transfer_pool(cfg, "cuda")
+    step = make_step_fn(model, stage_optimizer(model, 5e-3, 0.9, 0.0, False,
+                                               clip_norm=10.0))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    metrics = [step(*pool_batch(pool, i, T_BATCH), generator=gen)
+               for i in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    counters = {"match_anchors": cm.match_anchors,
+                "ms_roi_align_fwd": cms.ms_roi_align_fwd,
+                "ms_roi_align_bwd": cms.ms_roi_align_bwd}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    metrics += [step(*pool_batch(pool, WARMUP_STEPS + i, T_BATCH),
+                     generator=gen) for i in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    m = {k: np.array([float(x[k]) for x in metrics]) for k in metrics[0]}
+    res = dict(config="T3", batch=T_BATCH, steps=TIMED_STEPS,
+               step_ms=dt / TIMED_STEPS * 1e3,
+               img_per_s=T_BATCH * TIMED_STEPS / dt,
+               first_total_loss=float(m["total_loss"][0]),
+               last_total_loss=float(m["total_loss"][-1]),
+               grad_norm=float(m["grad_norm"][-1]),
+               losses={k: float(v[-1]) for k, v in m.items()
+                       if k.startswith("loss_")},
+               launches_per_step={k: v / TIMED_STEPS
+                                  for k, v in launches.items()})
+    log("[train T3]", json.dumps(res))
+    if not all(np.isfinite(v).all() for v in m.values()):
+        raise AssertionError("T3: non-finite loss or grad norm")
+    want = {"match_anchors": 1, "ms_roi_align_fwd": 2, "ms_roi_align_bwd": 2}
+    if launches != {k: n * TIMED_STEPS for k, n in want.items()}:
+        raise AssertionError(f"T3: launches {launches}, expected K4/K5/K6 "
+                             f"1/2/2 per step")
+    res["profile"] = profile_call(
+        lambda: step(*pool_batch(pool, 0, T_BATCH), generator=gen))
+    log("[profile T3]", json.dumps(res["profile"]))
+
+    # Stage 1: the frozen parameters keep their values, the heads move.
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    m1 = make_step_fn(model, stage_optimizer(
+        model, 5e-3, 0.9, 5e-4, True, clip_norm=10.0))(
+        *pool_batch(pool, 1, T_BATCH), generator=gen)
+    moved = {n: not torch.equal(p, before[n])
+             for n, p in model.named_parameters()}
+    frozen_still = all(not v for n, v in moved.items()
+                       if n.split(".")[0] in FROZEN_STAGE1)
+    heads_moved = all(v for n, v in moved.items()
+                      if n.split(".")[0] not in FROZEN_STAGE1)
+    res["stage1"] = dict(total_loss=float(m1["total_loss"]),
+                         grad_norm=float(m1["grad_norm"]),
+                         frozen_unchanged=frozen_still,
+                         heads_updated=heads_moved)
+    log("[train T3 stage 1]", json.dumps(res["stage1"]))
+    if not (frozen_still and heads_moved
+            and all(math.isfinite(float(v)) for v in m1.values())):
+        raise AssertionError(f"T3 stage 1: {res['stage1']}")
+    return res
+
+
+def phase_transfer_e2e() -> dict:
+    """One f32 transfer step at batch 1 from the same weights, batch and
+    draws with the kernels (roi_backend and rpn_match_backend "kernel")
+    and with their plain versions, the kernel route twice."""
+    from livecell_tpu_torch.config import TransferConfig
+    from livecell_tpu_torch.models.transfer import create_transfer_model
+    from livecell_tpu_torch.parallel.train_step import make_step_fn
+    from livecell_tpu_torch.train.train_transfer import stage_optimizer
+
+    images, targets = pool_batch(transfer_pool(TransferConfig(), "cuda"),
+                                 0, 1)
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    for route in ("kernel", "plain", "kernel"):
+        cfg = TransferConfig(compute_dtype="float32", roi_backend=route,
+                             rpn_match_backend=route)
+        model = create_transfer_model(
+            cfg, torch.Generator().manual_seed(SEED), device="cuda",
+            train=True)
+        record = {}
+        m = make_step_fn(model, stage_optimizer(model, 5e-3, 0.9, 0.0,
+                                                False))(
+            images, targets, record=record,
+            generator=torch.Generator(device="cuda").manual_seed(SEED + 5))
+        runs.append((m, record, {n: p.grad.clone()
+                                 for n, p in model.named_parameters()}))
+        del model
+    torch.backends.cudnn.deterministic = False
+    (mk, rk, gk), (mp, rp, gp), (_, _, gk2) = runs
+    same = {k: torch.equal(rk[k], rp[k]) for k in rp}
+
+    def worst(ga, gb):
+        """Largest per-tensor (|a - b|_max / |b|_max, L2 of a - b / L2 of
+        b), each with its tensor's name."""
+        e = [((ga[n] - gb[n]).abs().max().item()
+              / max(gb[n].abs().max().item(), 1e-12),
+              (ga[n] - gb[n]).norm().item() / max(gb[n].norm().item(),
+                                                  1e-12), n) for n in gb]
+        return max((x[0], x[2]) for x in e), max((x[1], x[2]) for x in e)
+
+    loss_err = max(abs(mk[k].item() - mp[k].item()) / max(abs(mp[k].item()),
+                                                           1e-6)
+                   for k in mp if k.startswith("loss_"))
+    (g_max, g_name), (g_l2, g_l2_name) = worst(gk, gp)
+    (spread, _), _ = worst(gk2, gk)
+    res = dict(batch=1, selections_equal=same, loss_rel_err=loss_err,
+               grad_rel_err=g_max, grad_worst=g_name, grad_l2_rel_err=g_l2,
+               grad_l2_worst=g_l2_name, kernel_vs_kernel_grad_rel=spread,
+               losses_kernel={k: mk[k].item() for k in mk},
+               losses_plain={k: mp[k].item() for k in mp})
+    log("[transfer e2e f32]", json.dumps(res))
+    # Tolerances: K4 agrees with its plain version bit for bit, K5/K6
+    # within f32 reassociation; the losses are sums over the same
+    # selections, 1e-5 relative. The gradients of random weights pass
+    # those differences through ReLU and max-pool kinks: as in
+    # tests/test_torch_transfer.py, 1e-2 of each tensor's largest entry
+    # and 2e-3 of its norm.
+    if not (all(same.values()) and loss_err <= 1e-5 and g_max <= 1e-2
+            and g_l2 <= 2e-3):
+        raise AssertionError(f"transfer e2e: kernel and plain disagree: "
+                             f"{res}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -695,6 +1099,7 @@ def main() -> int:
     from livecell_tpu_torch.models.mask_rcnn import create_model
     from livecell_tpu_torch.ops import _build
     from livecell_tpu_torch.ops import cuda_match as cm
+    from livecell_tpu_torch.ops import cuda_ms_roi_align as cms
     from livecell_tpu_torch.ops import cuda_roi_align as cra
     from livecell_tpu_torch.serve.app import InferenceEngine
     from livecell_tpu_torch.serve.stitch import tile_position
@@ -794,32 +1199,59 @@ def main() -> int:
     # 8. checkpoint round trip of the T2 model, served.
     phase_checkpoint(tmodel, topt, "cuda", tile)
 
-    # The kernels' line: every kernel's headline case at the training
-    # step's shape (B = 32, K = 128 bf16; K4 in T2's full form), `launches`
-    # from T2's timed steps; every case under "cases".
+    del tmodel, topt
+    torch.cuda.empty_cache()
+
+    # 9.-12. the transfer model: its kernels at its shapes, a frame
+    # request, T3 training, and the f32 kernel-vs-plain step.
+    cases += phase_transfer_kernels(cms, cm)
+    torch.cuda.empty_cache()
+    req_d = phase_transfer_serve(frame, tcfg)
+    torch.cuda.empty_cache()
+    t3 = phase_transfer_train()
+    torch.cuda.empty_cache()
+    phase_transfer_e2e()
+
+    # The kernels' line: every kernel's headline case at its training
+    # step's shape (K1-K3: B = 32, K = 128 bf16; K4: T2's full form; K5,
+    # K6: T3's B = 4, K = 512 at 7x7, bf16), `launches` from the timed
+    # steps of the training path that runs it (T2; T3 for K5, K6); the
+    # launches of every path and every case under "cases".
     replaces = {
         "roi_weights": "livecell_tpu/ops/pallas_roi_align.py:90",
         "roi_align_fwd": "livecell_tpu/ops/pallas_roi_align.py:126",
         "roi_align_bwd": "livecell_tpu/ops/pallas_roi_align.py:152",
-        "match_anchors": "livecell_tpu/ops/pallas_match.py:44"}
-    serve_reqs = (req_a, req_b, req_c)
+        "match_anchors": "livecell_tpu/ops/pallas_match.py:44",
+        "ms_roi_align_fwd": "livecell_tpu/ops/pallas_ms_roi.py:57",
+        "ms_roi_align_bwd": "livecell_tpu/ops/pallas_ms_roi.py:71"}
+    sources = {"match_anchors": "match.cu", "ms_roi_align_fwd":
+               "ms_roi_align.cu", "ms_roi_align_bwd": "ms_roi_align.cu"}
+    heads = {"match_anchors": {"B": 32, "I": 128, "full": True},
+             "ms_roi_align_fwd": {"B": T_BATCH, "K": 512, "s": 7,
+                                  "dtype": str(torch.bfloat16)},
+             "ms_roi_align_bwd": {"B": T_BATCH, "K": 512, "s": 7,
+                                  "dtype": str(torch.bfloat16)}}
+    train["T3"] = t3
+    serve_reqs = (req_a, req_b, req_c, req_d)
     kernels = []
     for kname in replaces:
         mine = [c for c in cases if c["name"] == kname]
-        sh = {"B": 32, "K": 128, "dtype": str(torch.bfloat16)} \
-            if kname != "match_anchors" else {"B": 32, "I": 128, "full": True}
+        sh = heads.get(kname, {"B": 32, "K": 128,
+                               "dtype": str(torch.bfloat16)})
         head = next(c for c in mine
-                    if all(c["shape"][k] == v for k, v in sh.items()))
+                    if all(c["shape"].get(k) == v for k, v in sh.items()))
         per_path = {label: r["launches_per_step"][kname]
-                    for label, r in train.items()}
+                    for label, r in train.items()
+                    if kname in r["launches_per_step"]}
         per_path.update({r["request"][0]: r["launches"][kname]
                          for r in serve_reqs if kname in r["launches"]})
+        path = "T3" if kname.startswith("ms_") else "T2"
         kernels.append(dict(
             name=kname, route="cuda",
-            source="livecell_tpu_torch/csrc/" + (
-                "match.cu" if kname == "match_anchors" else "roi_align.cu"),
+            source="livecell_tpu_torch/csrc/" + sources.get(
+                kname, "roi_align.cu"),
             replaces=replaces[kname],
-            launches=round(train["T2"]["launches_per_step"][kname]
+            launches=round(train[path]["launches_per_step"][kname]
                            * TIMED_STEPS),
             launches_per_path=per_path,
             max_abs_err=max(c["max_err"] for c in mine),

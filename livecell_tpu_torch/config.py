@@ -8,7 +8,9 @@ names, defaults and the JSON sidecar format are the same, so a
 Three fields change meaning. `roi_backend` and `match_backend` select
 the route of ops/cuda_roi_align.py and ops/cuda_match.py ("auto": the
 hand-written kernels on CUDA tensors and their plain PyTorch versions
-on CPU tensors; "kernel"; "plain"). `topk_backend` is "exact" or "auto"
+on CPU tensors; "kernel"; "plain"); `TransferConfig`'s `roi_backend`
+and `rpn_match_backend` select those of ops/cuda_ms_roi_align.py and
+ops/cuda_match.py the same way. `topk_backend` is "exact" or "auto"
 (exact too): JAX's approximate top-k is a TPU instruction. A JAX sidecar's
 route names ("einsum"/"pallas", "xla"/"pallas", "approx") are a choice
 of deployment, not of semantics, and load as the port's routes.
@@ -250,6 +252,84 @@ def add_dense_flags(parser) -> None:
 
 
 @dataclasses.dataclass(frozen=True)
+class TransferConfig:
+    """The transfer R50-FPN Mask R-CNN (the JAX package's
+    livecell_tpu/models/transfer.py:TransferConfig, same fields and
+    defaults): torchvision maskrcnn_resnet50_fpn at the LIVECell tile
+    shape. A 224x304 input tile is resized to the 800x1086 canvas and
+    padded to 800x1088; the RPN runs over P2-P6 with one anchor size per
+    level and 3 ratios."""
+
+    num_classes: int = 2
+
+    tile_height: int = 224
+    tile_width: int = 304
+    image_height: int = 800
+    resized_width: int = 1086
+    image_width: int = 1088
+
+    max_instances: int = 128
+    mask_size: int = 28
+    mask_roi_size: int = 14
+    roi_size: int = 7
+
+    anchor_sizes: Tuple[int, ...] = (32, 64, 128, 256, 512)
+    anchor_ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
+    level_strides: Tuple[int, ...] = (4, 8, 16, 32, 64)
+
+    rpn_pre_topk_per_level: int = 1000
+    rpn_post_nms: int = 1000
+    rpn_nms_thresh: float = 0.7
+    rpn_min_size: float = 1e-3
+    # "sweep": ops/nms.py:nms_iterated; "scan": nms_fixed.
+    rpn_nms_mode: str = "sweep"
+    # MultiScaleRoIAlign route (ops/cuda_ms_roi_align.py) and anchor
+    # matcher route (ops/cuda_match.py): "auto", "kernel" or "plain".
+    roi_backend: str = "auto"
+    rpn_match_backend: str = "auto"
+    rpn_fg_iou: float = 0.7
+    rpn_bg_iou: float = 0.3
+    rpn_batch: int = 256
+    rpn_pos_fraction: float = 0.5
+
+    box_fg_iou: float = 0.5
+    box_batch: int = 512
+    box_pos_fraction: float = 0.25
+    box_reg_weights: Tuple[float, ...] = (10.0, 10.0, 5.0, 5.0)
+
+    mask_slots: int = 128
+
+    score_thresh: float = 0.05
+    det_nms_thresh: float = 0.5
+    det_min_size: float = 1e-2
+    max_detections: int = 100
+
+    compute_dtype: str = "bfloat16"
+
+    # Batch norm normalizes with its running statistics in every mode on
+    # this model (torchvision's FrozenBatchNorm2d), so the flag changes
+    # nothing in the forward (as in the JAX model).
+    frozen_bn: bool = False
+
+    def __post_init__(self):
+        for name in ("roi_backend", "rpn_match_backend"):
+            if getattr(self, name) not in ROUTES:
+                raise ValueError(f"{name} must be one of {ROUTES}, got "
+                                 f"{getattr(self, name)!r}")
+        if self.rpn_nms_mode not in ("sweep", "scan"):
+            raise ValueError(f"rpn_nms_mode must be 'sweep' or 'scan', got "
+                             f"{self.rpn_nms_mode!r}")
+
+    @property
+    def box_pos(self) -> int:
+        return int(self.box_batch * self.box_pos_fraction)
+
+    @property
+    def rpn_pos(self) -> int:
+        return int(self.rpn_batch * self.rpn_pos_fraction)
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     tile: TileConfig = dataclasses.field(default_factory=TileConfig)
@@ -269,3 +349,20 @@ class TrainConfig:
     seed: int = 0
     eval_score_thresh: float = 0.5
     eval_iou_thresh: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class TransferTrainConfig:
+    """The two-stage transfer schedule (the JAX package's
+    TransferTrainConfig): stage 1 trains the heads with the backbone,
+    FPN and RPN frozen, stage 2 everything; SGD with momentum and
+    weight decay."""
+
+    batch_size: int = 2
+    stage1_lr: float = 5e-3
+    stage1_epochs: int = 3
+    stage2_lr: float = 1e-3
+    stage2_epochs: int = 2
+    momentum: float = 0.9
+    weight_decay: float = 5e-4
+    seed: int = 0

@@ -15,10 +15,9 @@
 //    One thread per element of Wy [R, n, H] and Wx [R, n, W]. Bound by
 //    bytes: it reads 16 bytes per ROI and writes the weights (about
 //    2.3 MB at 25 tiles x 50 ROIs x 7 rows x (56 + 76) in bf16), so a
-//    call is launch-latency bound at the serving shapes. The rounded
-//    intrinsics (__fmul_rn, ...) stop the compiler from fusing a*b+c
-//    into one FMA, so every step rounds where the plain version's
-//    separate tensor ops round and the f32 weights agree bit for bit.
+//    call is launch-latency bound at the serving shapes. The weight is
+//    roi_common.cuh:pooled_weight, which rounds where the plain
+//    version's tensor ops round, so the f32 weights agree bit for bit.
 //
 // K2 roi_align_fwd_kernel replaces the Pallas kernel `_fwd_kernel`
 //    (pallas_roi_align.py:126, entry `roi_align_pallas`:197 via
@@ -58,33 +57,21 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "roi_common.cuh"
+
 namespace {
+
+using livecell::from_f32;
+using livecell::pool_roi;
+using livecell::pooled_weight;
+using livecell::round_to;
+using livecell::to_f32;
 
 constexpr int kFwdThreads = 256;
 constexpr int kWeightThreads = 256;
 constexpr int kBwdThreads = 128;   // channels per backward block
 constexpr int kBwdRoiChunk = 64;   // ROIs whose Wy column is staged at once
 constexpr int kMaxBins = 16;       // largest out_size the backward takes
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Round an f32 partial sum to T and back (identity for T = float).
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kWeightThreads)
@@ -103,23 +90,8 @@ roi_weights_kernel(const float* __restrict__ boxes, T* __restrict__ wy,
   const float lo = boxes[roi * 4 + (is_y ? 1 : 0)];
   const float hi = boxes[roi * 4 + (is_y ? 3 : 2)];
 
-  const float start = __fmul_rn(lo, scale);
-  const float bin = __fdiv_rn(
-      fmaxf(__fsub_rn(__fmul_rn(hi, scale), start), 1.0f), (float)n);
-  float acc = 0.0f;
-  for (int s = 0; s < ratio; ++s) {
-    // (s + 0.5) / ratio in double, rounded once: the plain version's
-    // Python scalar.
-    const float off = (float)((s + 0.5) / ratio);
-    const float c =
-        __fadd_rn(start, __fmul_rn(__fadd_rn((float)p, off), bin));
-    if (c >= -1.0f && c <= (float)size) {
-      const float cc = fminf(fmaxf(c, 0.0f), (float)(size - 1));
-      acc = __fadd_rn(
-          acc, fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(cc, (float)g)))));
-    }
-  }
-  (is_y ? wy : wx)[j] = from_f32<T>(__fdiv_rn(acc, (float)ratio));
+  (is_y ? wy : wx)[j] =
+      from_f32<T>(pooled_weight(lo, hi, scale, n, size, ratio, p, g));
 }
 
 // Dynamic shared memory: the ROI's n Wy rows (n*h floats), its n Wx
@@ -146,54 +118,8 @@ roi_align_fwd_kernel(const T* __restrict__ feat, const T* __restrict__ wy,
     sx[i] = to_f32(wx_roi[i]);
   __syncthreads();
 
-  // One warp per row: the row's non-zero index range.
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  for (int r = warp; r < 2 * n; r += n_warps) {
-    const bool is_y = r < n;
-    const int len = is_y ? h : w;
-    const float* row = is_y ? sy + r * h : sx + (r - n) * w;
-    int lo = len, hi = -1;
-    for (int i = lane; i < len; i += 32) {
-      if (row[i] != 0.0f) {
-        lo = min(lo, i);
-        hi = max(hi, i);
-      }
-    }
-    lo = __reduce_min_sync(0xffffffffu, lo);
-    hi = __reduce_max_sync(0xffffffffu, hi);
-    if (lane == 0) {
-      first[r] = lo;
-      last[r] = hi;
-    }
-  }
-  __syncthreads();
-
-  const T* fb = feat + (size_t)b * h * w * c;
-  T* ob = out + (size_t)roi * n * n * c;
-  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-    for (int p = 0; p < n; ++p) {
-      const float* ry = sy + p * h;
-      const int y0 = first[p], y1 = last[p];
-      for (int q = 0; q < n; ++q) {
-        const float* rx = sx + q * w;
-        float acc = 0.0f;
-        for (int x = first[n + q]; x <= last[n + q]; ++x) {
-          const float wxv = rx[x];
-          if (wxv == 0.0f) continue;  // uniform across the block
-          float t = 0.0f;
-          for (int y = y0; y <= y1; ++y) {
-            const float wyv = ry[y];
-            if (wyv == 0.0f) continue;
-            t = fmaf(wyv, to_f32(fb[((size_t)y * w + x) * c + ch]), t);
-          }
-          acc = fmaf(wxv, round_to<T>(t), acc);
-        }
-        ob[((size_t)p * n + q) * c + ch] = from_f32<T>(acc);
-      }
-    }
-  }
+  pool_roi<T>(sy, sx, first, last, feat + (size_t)b * h * w * c,
+              out + (size_t)roi * n * n * c, n, h, w, c);
 }
 
 template <typename T>

@@ -1,12 +1,15 @@
 """JAX variables -> port state dict (no JAX import: the JAX tree comes in
-as nested dicts of numpy arrays).
+as nested dicts of numpy arrays), for the custom model and the transfer
+model alike.
 
 The port's module names mirror the JAX parameter tree, so the key
 mapping is mechanical (`a/b/kernel` -> `a.b.weight`):
-  conv kernel HWIO -> OIHW; the mask head's transposed-conv kernel is
-    flipped in space and reordered to torch's [in, out, kh, kw];
-  dense kernel [in, out] -> [out, in] (box_head/fc1 included: the port
-    flattens ROI features (y, x, c)-major like the JAX package);
+  conv kernel HWIO -> OIHW; a transposed-conv kernel (the custom mask
+    head's `deconv`, the transfer mask head's `conv5_mask`) is flipped in
+    space and reordered to torch's [in, out, kh, kw];
+  dense kernel [in, out] -> [out, in] (box_head/fc1 and box_head/fc6
+    included: the port flattens ROI features (y, x, c)-major like the
+    JAX package);
   bn scale/bias/mean/var -> weight/bias/running_mean/running_var;
   rpn/cls_logits and rpn/bbox_pred 1x1 kernels -> the fused rpn.fused.
 """
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 _RPN_PARTS = ("rpn/cls_logits/", "rpn/bbox_pred/")
+_DECONVS = ("/deconv/", "/conv5_mask/")
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -34,7 +38,7 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def _kernel(key: str, w: np.ndarray) -> np.ndarray:
     if w.ndim == 4:
-        if "deconv" in key:
+        if any(d in key for d in _DECONVS):
             return np.transpose(w[::-1, ::-1], (2, 3, 0, 1))
         return np.transpose(w, (3, 2, 0, 1))
     if w.ndim != 2:
@@ -43,9 +47,9 @@ def _kernel(key: str, w: np.ndarray) -> np.ndarray:
 
 
 def from_jax_variables(variables_np) -> "OrderedDict[str, torch.Tensor]":
-    """{"params": ..., "batch_stats": ...} of the JAX CustomMaskRCNN, as
-    nested dicts of numpy arrays -> a state dict for
-    `CustomMaskRCNN.load_state_dict(..., strict=True)`. Every JAX leaf
+    """{"params": ..., "batch_stats": ...} of the JAX CustomMaskRCNN or
+    TransferMaskRCNN, as nested dicts of numpy arrays -> a state dict for
+    the port model's `load_state_dict(..., strict=True)`. Every JAX leaf
     is used and every port key is written exactly once. Without
     "batch_stats" only the parameters are mapped; the mapping is linear,
     so a JAX gradient tree {"params": grads} maps onto the port's

@@ -1,6 +1,7 @@
-"""ResNet-18 backbone (counterpart of livecell_tpu/models/resnet.py).
+"""ResNet backbones (counterpart of livecell_tpu/models/resnet.py).
 
-torchvision's stem + BasicBlock stages, NCHW inside (the model keeps
+torchvision's stem + BasicBlock stages (ResNet-18, the custom model) or
+Bottleneck stages (ResNet-50, the transfer model), NCHW inside (the model keeps
 activations in channels_last memory, so they are NHWC in memory).
 Batch norm has flax's semantics (`BatchNorm`). Module names mirror the
 JAX parameter tree (`conv1`, `bn1`, `layer1_0/conv1/conv`, ...). The
@@ -78,13 +79,40 @@ class BasicBlock(nn.Module):
         return F.relu(out + identity)
 
 
+class Bottleneck(nn.Module):
+    """torchvision Bottleneck: 1x1 - 3x3 (strided) - 1x1 to 4x the
+    width, with identity or 1x1 projection shortcut."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, width: int, stride: int,
+                 generator: torch.Generator):
+        super().__init__()
+        cout = width * self.expansion
+        self.conv1 = ConvBN(cin, width, 1, 1, generator)
+        self.conv2 = ConvBN(width, width, 3, stride, generator)
+        self.conv3 = ConvBN(width, cout, 1, 1, generator)
+        self.downsample = (ConvBN(cin, cout, 1, stride, generator)
+                           if stride != 1 or cin != cout else None)
+
+    def forward(self, x):
+        out = F.relu(self.conv1(x))
+        out = self.conv3(F.relu(self.conv2(out)))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
+
+
 class ResNetBackbone(nn.Module):
-    """Stem + 4 stages, returning the stage outputs (c1..c4)."""
+    """Stem + 4 stages, returning the stage outputs (c1..c4).
+    depths/bottleneck select ResNet-18 ((2,2,2,2), BasicBlock) or
+    ResNet-50 ((3,4,6,3), Bottleneck)."""
 
     def __init__(self, generator: torch.Generator,
                  depths: Sequence[int] = (2, 2, 2, 2),
-                 widths: Sequence[int] = (64, 128, 256, 512)):
+                 widths: Sequence[int] = (64, 128, 256, 512),
+                 bottleneck: bool = False):
         super().__init__()
+        block = Bottleneck if bottleneck else BasicBlock
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         kaiming_normal_fan_out(self.conv1.weight, 7 * 7 * 64, generator)
         self.bn1 = BatchNorm(64, eps=1e-5)
@@ -95,10 +123,9 @@ class ResNetBackbone(nn.Module):
             for j in range(depth):
                 stride = 2 if (i > 0 and j == 0) else 1
                 name = f"layer{i + 1}_{j}"
-                self.add_module(name, BasicBlock(cin, width, stride,
-                                                 generator))
+                self.add_module(name, block(cin, width, stride, generator))
                 names.append(name)
-                cin = width
+                cin = width * (Bottleneck.expansion if bottleneck else 1)
             self.stage_names.append(names)
 
     def forward(self, x, post_stage: Sequence = ()

@@ -1,7 +1,8 @@
-"""Mask resizing and pasting, batched and static-shaped (counterpart of
-livecell_tpu/ops/mask_ops.py: resize_bilinear, paste_masks).
+"""Mask resizing, reprojection and pasting, batched and static-shaped
+(counterpart of livecell_tpu/ops/mask_ops.py: resize_bilinear,
+reproject_mask28, paste_masks).
 
-Both are two-matrix interpolation resamplings (ops/interp.py) in f32.
+All are two-matrix interpolation resamplings (ops/interp.py) in f32.
 """
 
 from __future__ import annotations
@@ -26,6 +27,34 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]
         t = torch.einsum("yh,...hwc->...ywc", wy, x.float())
         out = torch.einsum("xw,...ywc->...yxc", wx, t)
     return out.to(x.dtype)
+
+
+def _reproject_axis(plo, phi, glo, ghi, m: int) -> torch.Tensor:
+    """[..., m, m] weights resampling a GT-box-grid axis at the proposal
+    box's bin centers; samples outside the GT box weigh 0 (no clamp)."""
+    gspan = (ghi - glo).clamp(min=1e-6)
+    j = torch.arange(m, dtype=torch.float32, device=plo.device)
+    # Tensor operands on both sides of each division: PyTorch divides by
+    # a Python scalar as a multiplication by its reciprocal.
+    mm = torch.full_like(gspan, m)
+    y = plo[..., None] + (j + 0.5) * ((phi - plo) / mm)[..., None] - 0.5
+    u = (y - glo[..., None] + 0.5) * (mm / gspan)[..., None] - 0.5
+    return (1.0 - (u[..., None] - j).abs()).clamp(min=0.0)
+
+
+def reproject_mask28(mask28: torch.Tensor, gt_boxes: torch.Tensor,
+                     prop_boxes: torch.Tensor) -> torch.Tensor:
+    """Resample mask targets sampled on their GT boxes' grids [..., m, m]
+    onto the proposal boxes' grids (torchvision's project_masks_on_boxes
+    from the precomputed mask28): gt_boxes, prop_boxes [..., 4] -> [...,
+    m, m] f32."""
+    m = mask28.shape[-1]
+    p, g = prop_boxes.float(), gt_boxes.float()
+    wy = _reproject_axis(p[..., 1], p[..., 3], g[..., 1], g[..., 3], m)
+    wx = _reproject_axis(p[..., 0], p[..., 2], g[..., 0], g[..., 2], m)
+    with torch.autocast(mask28.device.type, enabled=False):
+        t = torch.einsum("...yu,...uv->...yv", wy, mask28.float())
+        return torch.einsum("...xv,...yv->...yx", wx, t)
 
 
 def paste_masks(

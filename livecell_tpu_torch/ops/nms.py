@@ -1,11 +1,13 @@
-"""Fixed-shape greedy NMS, batched over images (counterpart of
-livecell_tpu/ops/nms.py:nms_fixed).
+"""Fixed-shape greedy NMS, batched over leading dimensions (counterpart
+of livecell_tpu/ops/nms.py: nms_fixed, nms_iterated).
 
-Exactly `max_keep` greedy steps; each picks the highest-scoring live
-candidate (first index among equal scores, as `argmax`) and kills every
-live candidate whose IoU with it is strictly greater than the
-threshold. The picks fill `max_keep` fixed slots plus a validity mask.
-The loop reads no tensor on the host, so it never waits for the card.
+`nms_fixed` runs exactly `max_keep` greedy steps; each picks the
+highest-scoring live candidate (first index among equal scores, as
+`argmax`) and kills every live candidate whose IoU with it is strictly
+greater than the threshold. `nms_iterated` solves the same recurrence
+by sweeps over the [N, N] suppression matrix. Both fill `max_keep`
+fixed slots plus a validity mask, and neither reads a tensor on the
+host, so they never wait for the card.
 """
 
 from __future__ import annotations
@@ -62,3 +64,56 @@ def nms_fixed(
         live = torch.where(ok[:, None] & suppress, neg, live)
     return (keep_idx.reshape(lead + (max_keep,)),
             keep_val.reshape(lead + (max_keep,)))
+
+
+def nms_iterated(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    iou_thresh: float,
+    max_keep: int,
+    valid: Optional[torch.Tensor] = None,
+    max_sweeps: int = 32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy NMS over [..., N] candidates by iterated sweeps.
+
+    Greedy NMS is the fixpoint of alive[i] = no j ranked above i with
+    alive[j] and iou[j, i] > thresh. From the all-valid set, sweeps are
+    taken in pairs and the even iterate is carried (a shrinking chain of
+    supersets of the greedy set). The JAX package stops once a pair
+    changes nothing or after ceil(max_sweeps / 2) pairs; an iterate
+    stops changing once its pair changed nothing, so running all
+    ceil(max_sweeps / 2) pairs gives the same set without a host read,
+    also where the sweeps run out first.
+
+    Returns (keep_idx [..., max_keep] int64, keep_valid [..., max_keep]
+    bool): the survivors in descending-score order, ties by index.
+    """
+    lead = scores.shape[:-1]
+    n = scores.shape[-1]
+    iou = box_iou(boxes, boxes).reshape(-1, n, n)           # [M, N, N]
+    live = scores.float()
+    if valid is not None:
+        live = torch.where(valid, live, torch.full_like(live, _NEG))
+    live = live.reshape(-1, n)
+    ok = live > _NEG / 2
+    order = torch.argsort(-live, dim=-1, stable=True)
+    rank = torch.argsort(order, dim=-1, stable=True)         # [M, N]
+    # sup[m, j, i]: j ranks above i and overlaps it. 0/1 values, so a
+    # bf16 product with f32 accumulation counts exactly.
+    sup = ((rank[:, :, None] < rank[:, None, :])
+           & (iou > iou_thresh)).to(torch.bfloat16)
+
+    def sweep(alive):
+        killed = torch.bmm(alive.to(torch.bfloat16)[:, None], sup)[:, 0] > 0
+        return ok & ~killed
+
+    alive = ok
+    for _ in range((max_sweeps + 1) // 2):
+        alive = sweep(sweep(alive))
+    sel = torch.where(alive, live, torch.full_like(live, _NEG))
+    # jax.lax.top_k's order: descending, the lowest index first among
+    # equal values.
+    kval, kidx = torch.sort(sel, dim=-1, descending=True, stable=True)
+    kval, kidx = kval[:, :max_keep], kidx[:, :max_keep]
+    return (kidx.reshape(lead + (max_keep,)),
+            (kval > _NEG / 2).reshape(lead + (max_keep,)))

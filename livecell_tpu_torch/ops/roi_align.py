@@ -1,5 +1,6 @@
 """RoIAlign as two dense contractions in float32 (counterpart of
-livecell_tpu/ops/roi_align.py: roi_align, roi_align_batched).
+livecell_tpu/ops/roi_align.py: roi_align, roi_align_batched,
+multiscale_roi_align).
 
 Each ROI's bilinear sampling is two interpolation matrices
 (ops/interp.roi_sample_matrices):
@@ -9,13 +10,15 @@ Each ROI's bilinear sampling is two interpolation matrices
     out  = mean of s over the sampling_ratio^2 sub-samples of each bin
 
 This float32 form is the port's yardstick of exactness for the kernels
-in ops/cuda_roi_align.py. It exists only as a test reference: no code
-path of the port calls it.
+in ops/cuda_roi_align.py and ops/cuda_ms_roi_align.py. It exists only as
+a test reference: no code path of the port calls it.
 """
 
 from __future__ import annotations
 
 import torch
+
+from typing import Sequence
 
 from livecell_tpu_torch.ops.interp import roi_sample_matrices
 
@@ -43,3 +46,28 @@ def roi_align(features: torch.Tensor, boxes: torch.Tensor,
     """Single image: features [H, W, C], boxes [K, 4] -> [K, s, s, C]."""
     return roi_align_batched(features[None], boxes[None], out_size,
                              spatial_scale, sampling_ratio)[0]
+
+
+def multiscale_roi_align(feats: Sequence[torch.Tensor], boxes: torch.Tensor,
+                         out_size: int = 7, sampling_ratio: int = 2,
+                         canonical_size: float = 224.0,
+                         canonical_level: int = 4) -> torch.Tensor:
+    """torchvision MultiScaleRoIAlign over P2-P5, batched: feats 4 maps
+    [B, H_l, W_l, C] (strides 4, 8, 16, 32), boxes [B, K, 4] in image
+    coordinates -> [B, K, s, s, C] in feats[0].dtype, computed in f32.
+    Each ROI takes the LevelMapper level floor(k0 + log2(sqrt(area) /
+    224 + 1e-6)) clamped to [2, 5] and RoIAlign (aligned=False) there."""
+    b = boxes.float()
+    area = ((b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])).clamp(
+        min=1e-12)
+    lvl = torch.floor(canonical_level + torch.log2(
+        area.sqrt() / torch.full_like(area, canonical_size) + 1e-6))
+    lvl = lvl.clamp(2, 5).long() - 2                         # [B, K]
+    out = None
+    for i, f in enumerate(feats):
+        o = roi_align_batched(f.float(), b, out_size, 0.25 / 2 ** i,
+                              sampling_ratio)
+        o = torch.where((lvl == i)[..., None, None, None], o,
+                        torch.zeros_like(o))
+        out = o if out is None else out + o
+    return out.to(feats[0].dtype)

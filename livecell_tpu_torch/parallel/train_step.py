@@ -3,9 +3,11 @@ livecell_tpu/parallel/train_step.py: _normalize_batch, make_step_fn; and
 of livecell_tpu/train/train_custom.py: build_optimizer).
 
 The step runs the forward with its loss dict, the backward, the global
-gradient norm and an AdamW update under the reference's per-epoch
-StepLR schedule; batch norm moves its running statistics in the
-forward. No mesh: one card.
+gradient norm over every parameter and an optimizer update: AdamW under
+the reference's per-epoch StepLR schedule (`build_optimizer`, the custom
+model) or any other torch optimizer (train/train_transfer.py:
+stage_optimizer, the transfer model). The custom model's batch norm
+moves its running statistics in the forward. No mesh: one card.
 """
 
 from __future__ import annotations
@@ -13,8 +15,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
-
-from livecell_tpu_torch.models.mask_rcnn import CustomMaskRCNN
+from torch import nn
 
 
 def normalize_batch(images: torch.Tensor,
@@ -30,7 +31,7 @@ def normalize_batch(images: torch.Tensor,
     return images, targets
 
 
-def build_optimizer(model: CustomMaskRCNN, lr: float, weight_decay: float,
+def build_optimizer(model: nn.Module, lr: float, weight_decay: float,
                     steps_per_epoch: int, step_size: int = 2,
                     gamma: float = 0.1) -> torch.optim.AdamW:
     """optax.adamw (betas 0.9/0.999, eps 1e-8, every parameter decayed)
@@ -55,27 +56,31 @@ def scheduled_lr(group: dict) -> float:
 
 
 def apply_update(opt: torch.optim.Optimizer) -> None:
-    """One optimizer update from the parameters' .grad at the scheduled
-    learning rate. The loss does not reach every parameter (the FPN
-    computes level 0's output conv only): optax decays such a parameter
-    (its Adam term is exactly 0), AdamW skips a parameter without a
-    gradient, so it gets a zero one."""
+    """One optimizer update from the parameters' .grad, at the scheduled
+    learning rate where the group carries build_optimizer's schedule. The
+    loss does not reach every parameter (the custom model's FPN computes
+    level 0's output conv only): optax decays such a parameter (its Adam
+    or momentum term is exactly 0), torch's optimizers skip a parameter
+    without a gradient, so it gets a zero one."""
     for g in opt.param_groups:
         for p in g["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        g["lr"] = scheduled_lr(g)
+        if "base_lr" in g:
+            g["lr"] = scheduled_lr(g)
     opt.step()
     for g in opt.param_groups:
-        g["schedule_step"] += 1
+        if "base_lr" in g:
+            g["schedule_step"] += 1
 
 
-def make_step_fn(model: CustomMaskRCNN,
-                 opt: torch.optim.Optimizer) -> Callable:
+def make_step_fn(model: nn.Module, opt: torch.optim.Optimizer) -> Callable:
     """step(images, targets, noise=None, generator=None, record=None) ->
     metrics {total_loss, grad_norm, loss_*}: scalar tensors left on the
-    device, so a loop of steps never waits for the card."""
-    params = [p for g in opt.param_groups for p in g["params"]]
+    device, so a loop of steps never waits for the card. The gradient
+    norm covers every parameter of the model, also those the optimizer
+    leaves frozen (optax.global_norm of all gradients)."""
+    params = list(model.parameters())
 
     def step(images, targets, noise=None, generator=None, record=None):
         images, targets = normalize_batch(images, targets)

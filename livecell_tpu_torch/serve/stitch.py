@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from livecell_tpu_torch.config import TileConfig
+from livecell_tpu_torch.config import TileConfig, TransferConfig
 from livecell_tpu_torch.device import resolve_device
 from livecell_tpu_torch.ops.mask_ops import paste_masks
 from livecell_tpu_torch.ops.proposals import top_k_stable
@@ -64,12 +64,24 @@ class StitchedDetections(NamedTuple):
     tile_nums: np.ndarray  # [N]
 
 
+def input_tile(mcfg) -> tuple[int, int]:
+    """(height, width) of the model's input tile, which a frame's tiles
+    are zero-padded to: the custom model's image_height x image_width,
+    the transfer model's tile_height x tile_width (it resizes the tile to
+    its canvas itself)."""
+    if isinstance(mcfg, TransferConfig):
+        return mcfg.tile_height, mcfg.tile_width
+    return mcfg.image_height, mcfg.image_width
+
+
 def make_frame_predictor(model, tile_cfg: TileConfig,
                          score_threshold: float = 0.5,
                          mask_threshold: float = 0.4,
                          max_frame_dets: int = 256, device=None):
-    """Build the frame predictor for `model` (a CustomMaskRCNN already on
-    `device`, the card unless the caller passes "cpu").
+    """Build the frame predictor for `model` (a CustomMaskRCNN or a
+    TransferMaskRCNN already on `device`, the card unless the caller
+    passes "cpu"). Each tile is zero-padded to the model's input tile
+    (`input_tile`) and its masks are pasted on that grid.
 
     Returns run(tiles_u8 [T, th, tw, 3] numpy) -> StitchedDetections,
     with run.dispatch (enqueue a frame, returns device tensors without
@@ -81,6 +93,7 @@ def make_frame_predictor(model, tile_cfg: TileConfig,
     if param_dev.type != dev.type:
         raise ValueError(f"model is on {param_dev}, predictor on {dev}")
     mcfg = model.cfg
+    ih, iw = input_tile(mcfg)
     th, tw = tile_cfg.tile_height, tile_cfg.tile_width
     tpr = tile_cfg.tiles_per_row
     t_idx = np.arange(tile_cfg.num_tiles)
@@ -97,12 +110,10 @@ def make_frame_predictor(model, tile_cfg: TileConfig,
     @torch.inference_mode()
     def predict(tiles_u8: torch.Tensor):
         images = tiles_u8.float() / 255.0
-        images = F.pad(images, (0, 0, 0, mcfg.image_width - tw,
-                                0, mcfg.image_height - th))
+        images = F.pad(images, (0, 0, 0, iw - tw, 0, ih - th))
         det = model.inference_forward(images)
 
-        masks = paste_masks(det.mask_probs, det.boxes,
-                            (mcfg.image_height, mcfg.image_width),
+        masks = paste_masks(det.mask_probs, det.boxes, (ih, iw),
                             valid=det.valid)[:, :, :th, :tw] > 0
         area = masks.sum(dim=(2, 3)).float()            # [T, D]
         inside = (masks & regions[:, None]).sum(dim=(2, 3)).float()

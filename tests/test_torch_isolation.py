@@ -31,7 +31,9 @@ def imported_modules(path: Path):
 def test_scan_covers_the_package():
     assert "livecell_tpu_torch/ops/cuda_roi_align.py" in FILES
     for rel in ("ops/cuda_match.py", "parallel/train_step.py",
-                "data/device_data.py", "train/checkpoint.py"):
+                "data/device_data.py", "train/checkpoint.py",
+                "ops/cuda_ms_roi_align.py", "models/transfer.py",
+                "models/torch_import.py", "train/train_transfer.py"):
         assert "livecell_tpu_torch/" + rel in FILES
     assert len(FILES) >= 20
 
