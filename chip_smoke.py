@@ -14,8 +14,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      at the training shape (32 images, K = 128, bf16); K4
      (match_anchors, full and max-only) at the fixed mode's 32 images x
      128 GT and the quirk mode's 1 x 4,096; K3 (roi_align_bwd, bf16 and
-     f32) at 32 x 128 and 1 x 128 ROIs; K2's and K3's library yardsticks
-     (one three-operand torch.einsum each) checked and timed too;
+     f32) at 32 x 128 and 1 x 128 ROIs and on one box covering the map,
+     its spans pre-pass covering the plain spans, two calls equal bit for
+     bit, and its resident blocks per SM (at least 2); K2's and K3's
+     library yardsticks (one three-operand torch.einsum each) checked and
+     timed too;
   4. serve: the full-width model (ResNet-18/CBAM/FPN-256 at 224x304,
      bf16, random weights from a seed) serves three requests through
      InferenceEngine.predict: (a) a 704x520 frame with the reference
@@ -41,9 +44,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      against their plain versions on a P2-P5 pyramid of the 800x1088
      canvas (256 channels) at the training shapes (4 images, K = 512 at
      7x7 and K = 128 at 14x14) and the serving shapes (25 tiles, K =
-     1,000 at 7x7 and K = 100 at 14x14), in bf16 and f32, and on
-     elongated boxes; K4 (full) at 217,413 anchors x 4 images x 128 GT;
-     timed with CUDA events and the profiler;
+     1,000 at 7x7 and K = 100 at 14x14), in bf16 and f32, on elongated
+     boxes and on one box covering the canvas; K6 as K3 above, and a
+     level without ROIs must get an all-zero gradient; K4 (full) at
+     217,413 anchors x 4 images x 128 GT; timed with CUDA events and the
+     profiler (a kernel's device time sums every kernel its wrapper
+     launches, pre-pass included);
  10. transfer serving: the full-width transfer R50-FPN Mask R-CNN
      (TransferConfig defaults, bf16, random weights from a seed) serves a
      704x520 frame through make_frame_predictor: first call, steady
@@ -107,27 +113,44 @@ def time_ms(fn, warmup=3, runs=21, calls=10) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in evs) / calls
 
 
-def kernel_ms(fn, kernel: str, calls=10) -> float:
-    """Device time per launch of the CUDA kernel whose name contains
-    `kernel`, from torch.profiler (excludes the host's launch gaps). A
-    profiler session on the H100 now and then records no kernel at all,
-    so up to three sessions are tried."""
+def kernel_ms(fn, kernels: tuple, calls=10) -> float:
+    """Device time per call of `fn` spent in the CUDA kernels whose names
+    contain one of `kernels` (all the kernels one wrapper call launches,
+    e.g. a pre-pass and the main kernel, each once a call), from
+    torch.profiler: their summed time over `calls` calls, divided by
+    `calls` (excludes the host's launch gaps). A profiler session on the
+    H100 now and then records only some of the launches, or none, so up
+    to five sessions are tried for one that recorded every launch; if
+    none did, the last session's mean time per recorded launch of each
+    kernel is summed instead, and the shortfall logged."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    counts = {}
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         rows = [ev for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA and kernel in ev.key]
-        if rows:
-            return sum(ev.self_device_time_total for ev in rows) / 1e3 / sum(
-                ev.count for ev in rows)
-    raise AssertionError(f"profiler saw no {kernel} in three sessions")
+                if ev.device_type == DeviceType.CUDA
+                and any(k in ev.key for k in kernels)]
+        counts = {k: sum(ev.count for ev in rows if k in ev.key)
+                  for k in kernels}
+        if all(n == calls for n in counts.values()):
+            break
+    else:
+        if not any(counts.values()):
+            raise AssertionError(f"profiler saw none of {kernels} in five "
+                                 f"sessions")
+        log(f"[kernels] profiler recorded {counts} of {calls} calls of "
+            f"{kernels}: summing each kernel's mean per recorded launch")
+        return sum(sum(ev.self_device_time_total for ev in rows
+                       if k in ev.key) / n
+                   for k, n in counts.items() if n) / 1e3
+    return sum(ev.self_device_time_total for ev in rows) / 1e3 / calls
 
 
 def make_boxes(k: int, gen: torch.Generator) -> torch.Tensor:
@@ -245,7 +268,7 @@ def k12_cases(cra, feat: torch.Tensor, boxes: torch.Tensor) -> list:
             library_ms=time_ms(library) if library else None,
             library_err=err_lib if library else None,
             library_tol=tol_lib if library else None,
-            kernel_ms=kernel_ms(fn, kname + "_kernel"),
+            kernel_ms=kernel_ms(fn, (kname + "_kernel",)),
             bound_ms=bms, bound_by=bby, bytes=nbytes, operations=ops))
     del out, ref, wy, wx, py, px
     torch.cuda.empty_cache()
@@ -353,11 +376,87 @@ def k4_case(cm, anchors: torch.Tensor, gt: torch.Tensor, v: torch.Tensor,
             warmup=1, runs=3, calls=2),
         library_ms=None,
         kernel_ms=kernel_ms(lambda: cm.match_anchors(anchors, gt, v, full),
-                            "match_kernel"),
+                            ("match_kernel", "best_index_kernel") if full
+                            else ("match_kernel",)),
         bound_ms=bms, bound_by=bby, bytes=nbytes, operations=ops)
     torch.cuda.empty_cache()
     return case
 
+
+
+def spans_check(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """A kernel pre-pass's spans [..., 4] (y_lo, y_hi, x_lo, x_hi) against
+    the plain ones: wherever the plain span has taps on both axes, the
+    kernel's must cover it (wider is allowed, a missed tap is not)."""
+    got, want = got.cpu(), want.cpu()
+    live = (want[..., 0] <= want[..., 1]) & (want[..., 2] <= want[..., 3])
+    covers = (got[..., 0] <= want[..., 0]) & (got[..., 1] >= want[..., 1]) \
+        & (got[..., 2] <= want[..., 2]) & (got[..., 3] >= want[..., 3])
+    return dict(spans_cover=bool((covers | ~live).all()),
+                spans_equal=torch.equal(got, want), rois_with_taps=int(
+                    live.sum()))
+
+
+def k3_case(cra, rois: torch.Tensor, dtype, gen: torch.Generator,
+            label: str = "") -> dict:
+    """K3 (its spans pre-pass and main kernel) against its plain version
+    and its library yardstick on boxes [B, K, 4] over the 56x76x256 map:
+    checked (tolerance, covering spans, two calls equal bit for bit) and
+    timed."""
+    b, k = rois.shape[:2]
+    dev = rois.device
+    name = f"{label + ' ' if label else ''}B={b} K={k} " \
+        f"{str(dtype).split('.')[-1]}"
+    wy, wx = cra.roi_weights(rois, (H, W), OUT, RATIO, SCALE, dtype)
+    g = torch.randn((b, k, OUT, OUT, C), generator=gen).to(dev, dtype)
+    got = cra.roi_align_bwd(g, wy, wx, (H, W))
+    again = cra.roi_align_bwd(g, wy, wx, (H, W))
+    ref = cra.roi_align_bwd_plain(g, wy, wx, (H, W))
+    diff = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    # bf16: u and dF are rounded to bf16 in both after f32 sums in
+    # another order, which can flip a rounding: 2 bf16 ulps at the
+    # output's magnitude. f32: reassociation of the sums over ROIs and
+    # bins, 1e-5 relative.
+    tol = (2 * 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) \
+        * max(scale, 1.0)
+    lib = k3_library(g, wy, wx)
+    err_lib = (lib.float() - ref.float()).abs().max().item()
+    # The library call contracts in the input dtype with its own
+    # intermediates: bf16 within 2^-5 of max|dF|, f32 1e-5.
+    tol_lib = (2.0 ** -5 if dtype == torch.bfloat16 else 1e-5) \
+        * max(scale, 1.0)
+    spans = spans_check(cra.roi_spans(wy, wx), cra.roi_spans_plain(wy, wx))
+    same = torch.equal(got, again)
+    blocks = cra.roi_align_bwd_blocks_per_sm(dtype)
+    torch.cuda.synchronize()
+    log(f"[kernels] K3 {name}: max_err {diff:.3g} (tol {tol:.3g}); "
+        f"library einsum vs plain {err_lib:.3g} (tol {tol_lib:.3g}); "
+        f"{json.dumps(spans)}; two calls equal {same}; blocks/SM {blocks}")
+    if not (diff <= tol and err_lib <= tol_lib and spans["spans_cover"]
+            and same and blocks >= 2):
+        raise AssertionError(f"K3 disagrees at {name}")
+    del lib, ref, again
+    esz = g.element_size()
+    nbytes = (g.numel() + wy.numel() + wx.numel() + b * H * W * C) * esz
+    ops = k3_operations(wy, wx, C)
+    bms, bby = bound(nbytes, ops)
+    case = dict(
+        name="roi_align_bwd",
+        shape=dict(B=b, H=H, W=W, C=C, K=k, dtype=str(dtype), case=label),
+        max_err=diff, tol=tol,
+        ms=time_ms(lambda: cra.roi_align_bwd(g, wy, wx, (H, W))),
+        plain_ms=time_ms(lambda: cra.roi_align_bwd_plain(g, wy, wx, (H, W)),
+                         warmup=1, runs=5, calls=2),
+        library_ms=time_ms(lambda: k3_library(g, wy, wx), runs=11),
+        library_err=err_lib, library_tol=tol_lib,
+        kernel_ms=kernel_ms(lambda: cra.roi_align_bwd(g, wy, wx, (H, W)),
+                            ("roi_spans_kernel", "roi_align_bwd_kernel")),
+        bound_ms=bms, bound_by=bby, bytes=nbytes, operations=ops,
+        two_calls_equal=same, blocks_per_sm=blocks, **spans)
+    del got, g, wy, wx
+    torch.cuda.empty_cache()
+    return case
 
 
 def phase_train_kernels(cra, cm) -> list:
@@ -381,7 +480,8 @@ def phase_train_kernels(cra, cm) -> list:
         for full in (True, False):
             cases.append(k4_case(cm, anchors, gt, v, full, label))
     # K3 at the training RoIAlign shapes: fixed mode [32, 128] and quirk
-    # mode [1, 128] proposals on the 56x76x256 map.
+    # mode [1, 128] proposals on the 56x76x256 map, then one box covering
+    # the whole map.
     gen = torch.Generator().manual_seed(SEED + 2)
     for b in (32, 1):
         rois = torch.cat([make_boxes(128, gen) for _ in range(2)])[:b]
@@ -393,53 +493,10 @@ def phase_train_kernels(cra, cm) -> list:
             cases += k12_cases(cra, feat, rois)
             del feat
         for dtype in (torch.bfloat16, torch.float32):
-            name = f"B={b} K=128 {str(dtype).split('.')[-1]}"
-            wy, wx = cra.roi_weights(rois, (H, W), OUT, RATIO, SCALE, dtype)
-            g = torch.randn((b, 128, OUT, OUT, C), generator=gen).to(
-                dev, dtype)
-            got = cra.roi_align_bwd(g, wy, wx, (H, W))
-            ref = cra.roi_align_bwd_plain(g, wy, wx, (H, W))
-            diff = (got.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            # bf16: u and dF are rounded to bf16 in both after f32 sums
-            # in another order, which can flip a rounding: 2 bf16 ulps at
-            # the output's magnitude. f32: reassociation of the sums over
-            # ROIs and bins, 1e-5 relative.
-            tol = (2 * 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) \
-                * max(scale, 1.0)
-            lib = k3_library(g, wy, wx)
-            err_lib = (lib.float() - ref.float()).abs().max().item()
-            # The library call contracts in the input dtype with its own
-            # intermediates: bf16 within 2^-5 of max|dF|, f32 1e-5.
-            tol_lib = (2.0 ** -5 if dtype == torch.bfloat16 else 1e-5) \
-                * max(scale, 1.0)
-            torch.cuda.synchronize()
-            log(f"[kernels] K3 {name}: max_err {diff:.3g} (tol {tol:.3g}); "
-                f"library einsum vs plain {err_lib:.3g} (tol {tol_lib:.3g})")
-            if not (diff <= tol and err_lib <= tol_lib):
-                raise AssertionError(f"K3 disagrees at {name}")
-            del lib, ref
-            esz = g.element_size()
-            nbytes = (g.numel() + wy.numel() + wx.numel()
-                      + b * H * W * C) * esz
-            ops = k3_operations(wy, wx, C)
-            bms, bby = bound(nbytes, ops)
-            cases.append(dict(
-                name="roi_align_bwd",
-                shape=dict(B=b, H=H, W=W, C=C, K=128, dtype=str(dtype)),
-                max_err=diff, tol=tol,
-                ms=time_ms(lambda: cra.roi_align_bwd(g, wy, wx, (H, W))),
-                plain_ms=time_ms(
-                    lambda: cra.roi_align_bwd_plain(g, wy, wx, (H, W)),
-                    warmup=1, runs=5, calls=2),
-                library_ms=time_ms(lambda: k3_library(g, wy, wx), runs=11),
-                library_err=err_lib, library_tol=tol_lib,
-                kernel_ms=kernel_ms(
-                    lambda: cra.roi_align_bwd(g, wy, wx, (H, W)),
-                    "roi_align_bwd_kernel"),
-                bound_ms=bms, bound_by=bby, bytes=nbytes, operations=ops))
-            del got, g, wy, wx
-            torch.cuda.empty_cache()
+            cases.append(k3_case(cra, rois, dtype, gen))
+    whole = torch.tensor([[[0.0, 0.0, 4.0 * W, 4.0 * H]]], device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        cases.append(k3_case(cra, whole, dtype, gen, "whole map"))
     for c in cases:
         log("[kernels]", json.dumps({k: v for k, v in c.items()}))
     return cases
@@ -723,6 +780,9 @@ T_BATCH, T_POOL = 4, 16
 # tests/test_pallas_ms_roi.py:76-96's elongated boxes, on the canvas.
 T_ELONGATED = [[16.0, 40.0, 1000.0, 72.0], [120.0, 8.0, 152.0, 620.0],
                [0.0, 0.0, 1086.0, 800.0], [400.0, 200.0, 560.0, 360.0]]
+# One box covering the whole canvas: its ROI pools from P5, so P2-P4 get
+# no ROI and an all-zero gradient.
+T_WHOLE = [[0.0, 0.0, 1088.0, 800.0]]
 
 
 def transfer_boxes(b: int, k: int, gen: torch.Generator) -> torch.Tensor:
@@ -761,19 +821,30 @@ def ms_roi_cases(cms, feats: list, boxes: torch.Tensor, out_size: int,
     tol5 = rel * max(ref.float().abs().max().item(), 1.0)
     g = torch.randn(out.shape, device=out.device).to(dtype)
     dfs = cms.ms_roi_align_bwd(g, boxes, levels, hw)
+    again = cms.ms_roi_align_bwd(g, boxes, levels, hw)
     drefs = cms.ms_roi_align_bwd_plain(g, boxes, levels, hw)
     err6 = max((d.float() - r.float()).abs().max().item()
                for d, r in zip(dfs, drefs))
     tol6 = min(rel * max(r.float().abs().max().item(), 1.0) for r in drefs)
-    torch.cuda.synchronize()
+    same = all(torch.equal(d, e) for d, e in zip(dfs, again))
     per_level = [int((levels == i).sum()) for i in range(4)]
+    # A level without ROIs gets an all-zero gradient.
+    empty_zero = all(not bool(d.any()) for d, n in zip(dfs, per_level)
+                     if n == 0)
+    spans = spans_check(
+        cms.ms_roi_spans(boxes, levels, hw, out_size, 2, dtype),
+        cms.ms_roi_spans_plain(boxes, levels, hw, out_size, 2, dtype))
+    blocks = cms.ms_roi_align_bwd_blocks_per_sm(dtype)
+    torch.cuda.synchronize()
     name = f"{label} B={b} K={k} s={out_size} {str(dtype).split('.')[-1]}"
     log(f"[kernels] {name} ROIs per level {per_level}: K5 max_err "
         f"{err5:.3g} (tol {tol5:.3g}), K6 max_err {err6:.3g} (tol "
-        f"{tol6:.3g})")
-    if not (err5 <= tol5 and err6 <= tol6):
+        f"{tol6:.3g}); K6 {json.dumps(spans)}; two calls equal {same}; "
+        f"empty levels zero {empty_zero}; blocks/SM {blocks}")
+    if not (err5 <= tol5 and err6 <= tol6 and same and empty_zero
+            and spans["spans_cover"] and blocks >= 2):
         raise AssertionError(f"K5/K6 disagree with plain at {name}")
-    del out, ref, dfs, drefs
+    del out, ref, dfs, drefs, again
 
     # What these inputs need: each level's weights (zero for the other
     # levels' ROIs), their non-zero taps and the pixels they touch.
@@ -795,15 +866,18 @@ def ms_roi_cases(cms, feats: list, boxes: torch.Tensor, out_size: int,
     shape = dict(B=b, K=k, s=out_size, C=C, dtype=str(dtype), case=label,
                  rois_per_level=per_level)
     cases = []
-    for kname, fn, plain, nbytes, ops, err, tol in (
+    for kname, fn, plain, nbytes, ops, err, tol, launched, extra in (
         ("ms_roi_align_fwd",
          lambda: cms.ms_roi_align_fwd(feats, boxes, levels, out_size),
          lambda: cms.ms_roi_align_fwd_plain(feats, boxes, levels, out_size),
-         bytes5, ops5, err5, tol5),
+         bytes5, ops5, err5, tol5, ("ms_roi_align_fwd_kernel",), {}),
         ("ms_roi_align_bwd",
          lambda: cms.ms_roi_align_bwd(g, boxes, levels, hw),
          lambda: cms.ms_roi_align_bwd_plain(g, boxes, levels, hw),
-         bytes6, ops6, err6, tol6),
+         bytes6, ops6, err6, tol6,
+         ("ms_roi_spans_kernel", "ms_roi_align_bwd_kernel"),
+         dict(two_calls_equal=same, empty_levels_zero=empty_zero,
+              blocks_per_sm=blocks, **spans)),
     ):
         bms, bby = bound(nbytes, ops)
         cases.append(dict(
@@ -812,8 +886,9 @@ def ms_roi_cases(cms, feats: list, boxes: torch.Tensor, out_size: int,
             plain_ms=time_ms(plain, warmup=1, runs=3, calls=1)
             if time_plain else None,
             library_ms=None,
-            kernel_ms=kernel_ms(fn, kname + "_kernel", calls=5),
-            bound_ms=bms, bound_by=bby, bytes=nbytes, operations=ops))
+            kernel_ms=kernel_ms(fn, launched, calls=5),
+            bound_ms=bms, bound_by=bby, bytes=nbytes, operations=ops,
+            **extra))
         torch.cuda.empty_cache()
     return cases
 
@@ -845,11 +920,13 @@ def phase_transfer_kernels(cms, cm) -> list:
     for label, b, shapes in (
             ("train", T_BATCH, ((512, 7), (128, 14))),
             ("serve", 25, ((1000, 7), (100, 14))),
-            ("elongated", 1, ((4, 7), (4, 14)))):
+            ("elongated", 1, ((4, 7), (4, 14))),
+            ("whole", 1, ((1, 7), (1, 14)))):
         pyr32 = [torch.randn((b, h, w, C), generator=gen).to(dev)
                  for h, w in T_PYRAMID]
         for k, s in shapes:
             boxes = (torch.tensor([T_ELONGATED]) if label == "elongated"
+                     else torch.tensor([T_WHOLE]) if label == "whole"
                      else transfer_boxes(b, k, gen)).to(dev)
             for dtype in (torch.bfloat16, torch.float32):
                 cases += ms_roi_cases(cms, [f.to(dtype) for f in pyr32],
@@ -1260,6 +1337,8 @@ def main() -> int:
             kernel_ms=head["kernel_ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_us=head["bound_ms"] * 1e3,
             bound_by=head["bound_by"], library_ms=head["library_ms"],
+            **({"blocks_per_sm": head["blocks_per_sm"]}
+               if "blocks_per_sm" in head else {}),
             cases=mine))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -27,18 +27,30 @@
 // K6 ms_roi_align_bwd_kernel replaces the composition's backward, the
 //    Pallas `_bwd_kernel` (pallas_roi_align.py:152) run once per level.
 //    dF_l[b,y,x,c] = sum_k [level_k = l] sum_p Wy[k,p,y] u[k,p,x,c] with
-//    u = sum_q Wx[k,q,x] g[b,k,p,q,c]. It gathers as K3 does: one block
-//    owns one feature row y of one level of one image and kBwdThreads
-//    channels, keeps the row's f32 sums in shared memory (272 x 128 x 4 B
-//    = 136 KB at P2, under the 227 KB opt-in limit), walks the image's ROIs
-//    in order, skips those of other levels and those whose Wy column
-//    misses the row, and recomputes the weights of the rest inline, so no
-//    weight tensor is stored between the forward and the backward. No
-//    atomics and a fixed sum order: the same result in every run.
-//    Rounding follows the Pallas kernel: g and u in the feature dtype (u
-//    summed in f32 and rounded to bf16 for bf16 input), dF summed in f32
-//    and rounded once. Bound by bytes: g read once, the four maps'
-//    gradients written once.
+//    u = sum_q Wx[k,q,x] g[b,k,p,q,c]. Bound by bytes: g read once, the
+//    four maps' gradients written whole (about 0.2 GB in bf16 at 4
+//    images, K = 512). The row gather it replaces worked as K3's did: one
+//    block per feature row of one level, every block walking all K ROIs,
+//    and its shared memory sized by the widest level for every block
+//    (the f32 row of 272 x 128 sums, the Wx rows and g: about 163 KB, so
+//    one 4-warp block per SM, even for the P5 rows that need 17 KB); for
+//    each ROI that hit the row it recomputed n x W_l weights, 141x the
+//    byte bound. It is now K3 on four levels, roi_common.cuh:
+//    backward_tile with the weights recomputed from the box
+//    (BoxWeights): ms_roi_spans_kernel computes each ROI's non-zero row
+//    and column span on its own level with pooled_weight rounded to the
+//    map's dtype, as the main kernel does (one warp per ROI, scanning a
+//    window two pixels wider than the box on each side), and writes
+//    empty spans for the other levels; one 4-warp block owns an 8 x 4
+//    pixel tile of one level of one image and 256 channels (the tiles of
+//    P2-P5 run in one grid), 13 KB of shared memory on every level, lists
+//    the ROIs of its level whose spans meet the tile in index order and
+//    recomputes their weights on the tile's rows and columns only. No
+//    weight tensor is stored between the forward and the backward. The
+//    sum order is the row gather's, so the result is the same bit for
+//    bit, in every run, with no atomics. Rounding follows the Pallas
+//    kernel: u rounded to the feature dtype, dF summed in f32 and
+//    rounded once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,17 +59,22 @@
 
 namespace {
 
-using livecell::from_f32;
+using livecell::backward_tile;
+using livecell::BoxWeights;
+using livecell::kMaxBins;
+using livecell::kSlice;
+using livecell::kSpanThreads;
+using livecell::kTileMinBlocks;
+using livecell::kTileThreads;
+using livecell::kTileX;
+using livecell::kTileY;
 using livecell::pool_roi;
 using livecell::pooled_weight;
 using livecell::round_to;
-using livecell::to_f32;
+using livecell::TileShared;
 
 constexpr int kLevels = 4;
 constexpr int kFwdThreads = 256;
-constexpr int kBwdThreads = 128;   // channels per backward block
-constexpr int kBwdRoiChunk = 64;   // ROIs whose Wy column is staged at once
-constexpr int kMaxBins = 16;       // largest out_size the backward takes
 
 // The four level maps (or their gradients) and their geometry.
 struct Pyramid {
@@ -108,114 +125,84 @@ ms_roi_align_fwd_kernel(Pyramid pyr, const float* __restrict__ boxes,
               w, c);
 }
 
-// Dynamic shared memory, sized for the widest level: the row's f32 sums
-// [w][kBwdThreads], the ROI's n Wx rows [n][w], each thread's n gradient
-// values [n][kBwdThreads], then per column x the first and last bin q
-// whose Wx tap is non-zero.
+__host__ __device__ __forceinline__ int level_tiles(const Pyramid& pyr,
+                                                    int l) {
+  return ((pyr.h[l] + kTileY - 1) / kTileY) *
+         ((pyr.w[l] + kTileX - 1) / kTileX);
+}
+
+// K6's pre-pass: one warp per ROI. On its own level l, the first and last
+// feature row (column) where any of its n pooled weights, rounded to T,
+// is non-zero: spans[l][roi] = (y_lo, y_hi, x_lo, x_hi), lo = size and
+// hi = -1 if none; on the other levels an empty span. The samples of a
+// box lie in [start, start + max(hi * scale - start, 1)], so its taps lie
+// in that range widened by one pixel; the warp scans it widened by two,
+// clamped to the map.
 template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kSpanThreads)
+ms_roi_spans_kernel(Pyramid pyr, const float* __restrict__ boxes,
+                    const int* __restrict__ levels, int4* __restrict__ spans,
+                    long long rois, int n, int ratio) {
+  const long long roi =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (roi >= rois) return;  // a whole warp leaves together
+  const int l = level_of(levels, roi);
+  const float scale = pyr.scale[l];
+  int lo[2], hi[2];
+  for (int a = 0; a < 2; ++a) {
+    const int size = a ? pyr.w[l] : pyr.h[l];
+    const float blo = boxes[roi * 4 + (a ? 0 : 1)];
+    const float bhi = boxes[roi * 4 + (a ? 2 : 3)];
+    const float start = __fmul_rn(blo, scale);
+    const float end =
+        start + fmaxf(__fsub_rn(__fmul_rn(bhi, scale), start), 1.0f);
+    // A NaN end point gives the whole axis.
+    const float f0 = floorf(start) - 2.0f, f1 = ceilf(end) + 2.0f;
+    const int g0 = f0 > 0.0f ? (int)fminf(f0, (float)(size - 1)) : 0;
+    const int g1 = f1 < (float)(size - 1) ? (int)fmaxf(f1, 0.0f) : size - 1;
+    const int len = max(g1 - g0 + 1, 0);
+    int first = size, last = -1;
+    for (int i = lane; i < n * len; i += 32) {
+      const int gg = g0 + i % len;
+      if (round_to<T>(pooled_weight(blo, bhi, scale, n, size, ratio, i / len,
+                                    gg)) != 0.0f) {
+        first = min(first, gg);
+        last = max(last, gg);
+      }
+    }
+    lo[a] = __reduce_min_sync(0xffffffffu, first);
+    hi[a] = __reduce_max_sync(0xffffffffu, last);
+  }
+  if (lane != 0) return;
+  for (int lv = 0; lv < kLevels; ++lv)
+    spans[lv * rois + roi] = lv == l ? make_int4(lo[0], hi[0], lo[1], hi[1])
+                                     : make_int4(pyr.h[lv], -1, pyr.w[lv], -1);
+}
+
+// Grid (the tiles of P2-P5, P2's first, x channel slices, the slices of
+// a tile side by side; images); the shared memory is
+// roi_common.cuh:TileShared, static.
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads, kTileMinBlocks)
 ms_roi_align_bwd_kernel(Pyramid dpyr, const T* __restrict__ g,
                         const float* __restrict__ boxes,
-                        const int* __restrict__ levels, int k, int n, int c,
-                        int ratio) {
-  extern __shared__ float smem[];
-  __shared__ float s_wy[kBwdRoiChunk * kMaxBins];
-  __shared__ int s_xlo[kBwdThreads / 32], s_xhi[kBwdThreads / 32];
-
-  // blockIdx.x runs over the rows of all levels, P2's first.
-  int y = blockIdx.x, l = 0;
-  while (l < kLevels - 1 && y >= dpyr.h[l]) y -= dpyr.h[l++];
+                        const int4* __restrict__ spans, int b, int k, int n,
+                        int c, int ratio) {
+  __shared__ TileShared sm;
+  const int slices = (c + kSlice - 1) / kSlice;
+  int tile = blockIdx.x / slices, l = 0;
+  while (l < kLevels - 1 && tile >= level_tiles(dpyr, l))
+    tile -= level_tiles(dpyr, l++);
   const int h = dpyr.h[l], w = dpyr.w[l];
-  const float scale = dpyr.scale[l];
-  const int b = blockIdx.y;
-  const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
-  const int ch = blockIdx.z * kBwdThreads + t;
-  const bool live = ch < c;
-
-  float* acc = smem;                                        // [w, threads]
-  float* sx = acc + w * kBwdThreads;                        // [n, w]
-  float* gs = sx + n * w;                                   // [n, threads]
-  int* qlo = reinterpret_cast<int*>(gs + n * kBwdThreads);  // [w]
-  int* qhi = qlo + w;                                       // [w]
-  for (int x = 0; x < w; ++x) acc[x * kBwdThreads + t] = 0.0f;
-
-  for (int k0 = 0; k0 < k; k0 += kBwdRoiChunk) {
-    const int kc = min(kBwdRoiChunk, k - k0);
-    __syncthreads();  // the previous chunk's readers are done
-    // Row y of the chunk's Wy at this level (0 for other levels):
-    // s_wy[kk * n + p].
-    for (int i = t; i < kc * n; i += kBwdThreads) {
-      const size_t roi = (size_t)b * k + k0 + i / n;
-      s_wy[i] = level_of(levels, roi) != l
-                    ? 0.0f
-                    : round_to<T>(pooled_weight(boxes[roi * 4 + 1],
-                                                boxes[roi * 4 + 3], scale, n,
-                                                h, ratio, i % n, y));
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kc; ++kk) {
-      bool hit = false;
-      for (int p = 0; p < n; ++p) hit |= s_wy[kk * n + p] != 0.0f;
-      if (!hit) continue;  // uniform across the block
-      const size_t roi = (size_t)b * k + k0 + kk;
-      const float bx0 = boxes[roi * 4], bx1 = boxes[roi * 4 + 2];
-      __syncthreads();  // the previous ROI's readers of sx/qlo are done
-      // The ROI's Wx rows, each column's non-zero bin range, and the
-      // ROI's column range (per warp, then over the block).
-      int xlo = w, xhi = -1;
-      for (int x = t; x < w; x += kBwdThreads) {
-        int lo = n, hi = -1;
-        for (int q = 0; q < n; ++q) {
-          const float v =
-              round_to<T>(pooled_weight(bx0, bx1, scale, n, w, ratio, q, x));
-          sx[q * w + x] = v;
-          if (v != 0.0f) {
-            lo = min(lo, q);
-            hi = q;
-          }
-        }
-        qlo[x] = lo;
-        qhi[x] = hi;
-        if (lo <= hi) {
-          xlo = min(xlo, x);
-          xhi = x;
-        }
-      }
-      xlo = __reduce_min_sync(0xffffffffu, xlo);
-      xhi = __reduce_max_sync(0xffffffffu, xhi);
-      if (lane == 0) {
-        s_xlo[warp] = xlo;
-        s_xhi[warp] = xhi;
-      }
-      __syncthreads();
-      if (!live) continue;
-      for (int i = 0; i < kBwdThreads / 32; ++i) {
-        xlo = min(xlo, s_xlo[i]);
-        xhi = max(xhi, s_xhi[i]);
-      }
-      const T* g_roi = g + roi * n * n * c + ch;
-      for (int p = 0; p < n; ++p) {
-        const float wyv = s_wy[kk * n + p];
-        if (wyv == 0.0f) continue;
-        for (int q = 0; q < n; ++q)
-          gs[q * kBwdThreads + t] = to_f32(g_roi[((size_t)p * n + q) * c]);
-        for (int x = xlo; x <= xhi; ++x) {
-          const int lo = qlo[x], hi = qhi[x];
-          if (lo > hi) continue;
-          float u = 0.0f;
-          for (int q = lo; q <= hi; ++q)
-            u = fmaf(sx[q * w + x], gs[q * kBwdThreads + t], u);
-          float& a = acc[x * kBwdThreads + t];
-          a = fmaf(wyv, round_to<T>(u), a);
-        }
-      }
-    }
-  }
-  if (!live) return;
-  T* drow = static_cast<T*>(dpyr.ptr[l]) + (((size_t)b * h + y) * w) * c + ch;
-  for (int x = 0; x < w; ++x)
-    drow[(size_t)x * c] = from_f32<T>(acc[x * kBwdThreads + t]);
+  const int tiles_x = (w + kTileX - 1) / kTileX;
+  const size_t roi0 = (size_t)blockIdx.y * k;
+  const BoxWeights<T> wt{boxes + roi0 * 4, dpyr.scale[l], n, h, w, ratio};
+  backward_tile<T>(wt, spans + (size_t)l * b * k + roi0, g + roi0 * n * n * c,
+                   static_cast<T*>(dpyr.ptr[l]) +
+                       (size_t)blockIdx.y * h * w * c,
+                   k, n, h, w, c, tile / tiles_x * kTileY,
+                   tile % tiles_x * kTileX, blockIdx.x % slices * kSlice, sm);
 }
 
 Pyramid make_pyramid(void* const* ptrs, const int* hs, const int* ws) {
@@ -250,28 +237,31 @@ cudaError_t launch_fwd(const Pyramid& pyr, const void* boxes,
 }
 
 template <typename T>
+cudaError_t launch_spans(const Pyramid& pyr, const void* boxes,
+                         const void* levels, void* spans, long long rois,
+                         int n, int ratio, cudaStream_t stream) {
+  const long long blocks = (rois * 32 + kSpanThreads - 1) / kSpanThreads;
+  ms_roi_spans_kernel<T><<<blocks, kSpanThreads, 0, stream>>>(
+      pyr, static_cast<const float*>(boxes), static_cast<const int*>(levels),
+      static_cast<int4*>(spans), rois, n, ratio);
+  return cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t launch_bwd(const Pyramid& dpyr, const void* g, const void* boxes,
-                       const void* levels, int b, int k, int n, int c,
-                       int ratio, cudaStream_t stream) {
-  int widest = 0, rows = 0;
-  for (int l = 0; l < kLevels; ++l) {
-    widest = max(widest, dpyr.w[l]);
-    rows += dpyr.h[l];
-  }
-  const size_t smem = ((size_t)widest * kBwdThreads + (size_t)n * widest +
-                       (size_t)n * kBwdThreads) * sizeof(float) +
-                      2 * (size_t)widest * sizeof(int);
-  // The 48 KB default covers static and dynamic shared memory together.
-  if (smem + kBwdRoiChunk * kMaxBins * sizeof(float) > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ms_roi_align_bwd_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                       const void* levels, void* spans, int b, int k, int n,
+                       int c, int ratio, cudaStream_t stream) {
+  if ((long long)b * k > 0) {
+    const cudaError_t e = launch_spans<T>(dpyr, boxes, levels, spans,
+                                          (long long)b * k, n, ratio, stream);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid(rows, b, (c + kBwdThreads - 1) / kBwdThreads);
-  ms_roi_align_bwd_kernel<T><<<grid, kBwdThreads, smem, stream>>>(
+  int tiles = 0;
+  for (int l = 0; l < kLevels; ++l) tiles += level_tiles(dpyr, l);
+  const dim3 grid(tiles * ((c + kSlice - 1) / kSlice), b);
+  ms_roi_align_bwd_kernel<T><<<grid, kTileThreads, 0, stream>>>(
       dpyr, static_cast<const T*>(g), static_cast<const float*>(boxes),
-      static_cast<const int*>(levels), k, n, c, ratio);
+      static_cast<const int4*>(spans), b, k, n, c, ratio);
   return cudaGetLastError();
 }
 
@@ -297,22 +287,57 @@ int livecell_ms_roi_align_fwd(void* const* feats, const int* hs,
   return (int)e;
 }
 
+// boxes [rois, 4] f32, levels [rois] int32 -> spans [4, rois] int4
+// (y_lo, y_hi, x_lo, x_hi) on each level of maps hs x ws, K6's pre-pass
+// alone (the backward launches it itself).
+int livecell_ms_roi_spans(const int* hs, const int* ws, const void* boxes,
+                          const void* levels, void* spans, long long rois,
+                          int n, int ratio, int bf16, void* stream) {
+  if (rois == 0) return 0;
+  void* none[kLevels] = {nullptr, nullptr, nullptr, nullptr};
+  const Pyramid pyr = make_pyramid(none, hs, ws);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      bf16 ? launch_spans<__nv_bfloat16>(pyr, boxes, levels, spans, rois, n,
+                                         ratio, st)
+           : launch_spans<float>(pyr, boxes, levels, spans, rois, n, ratio,
+                                 st);
+  return (int)e;
+}
+
 // g [b, k, n, n, c], boxes [b, k, 4] f32, levels [b, k] int32 ->
 // dfeats: 4 pointers to [b, hs[l], ws[l], c] (each written whole), all
-// bf16 if `bf16`, else f32.
+// bf16 if `bf16`, else f32; spans [4, b, k] int4 is the pre-pass's
+// scratch. c a multiple of 8, g and the gradients 16-byte aligned.
 int livecell_ms_roi_align_bwd(void* const* dfeats, const int* hs,
                               const int* ws, const void* g, const void* boxes,
-                              const void* levels, int b, int k, int n, int c,
-                              int ratio, int bf16, void* stream) {
+                              const void* levels, void* spans, int b, int k,
+                              int n, int c, int ratio, int bf16,
+                              void* stream) {
   if (b == 0 || c == 0) return 0;
-  if (n > kMaxBins) return (int)cudaErrorInvalidValue;
+  if (n > kMaxBins || c % livecell::kVec != 0)
+    return (int)cudaErrorInvalidValue;
   const Pyramid dpyr = make_pyramid(dfeats, hs, ws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      bf16 ? launch_bwd<__nv_bfloat16>(dpyr, g, boxes, levels, b, k, n, c,
-                                       ratio, st)
-           : launch_bwd<float>(dpyr, g, boxes, levels, b, k, n, c, ratio, st);
+      bf16 ? launch_bwd<__nv_bfloat16>(dpyr, g, boxes, levels, spans, b, k,
+                                       n, c, ratio, st)
+           : launch_bwd<float>(dpyr, g, boxes, levels, spans, b, k, n, c,
+                               ratio, st);
   return (int)e;
+}
+
+// Resident blocks of the backward kernel on one SM, or minus the CUDA
+// error.
+int livecell_ms_roi_align_bwd_blocks_per_sm(int bf16) {
+  int blocks = 0;
+  const cudaError_t e =
+      bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &blocks, ms_roi_align_bwd_kernel<__nv_bfloat16>,
+                 kTileThreads, 0)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &blocks, ms_roi_align_bwd_kernel<float>, kTileThreads, 0);
+  return e == cudaSuccess ? blocks : -(int)e;
 }
 
 const char* livecell_ms_roi_align_error_string(int code) {

@@ -42,17 +42,20 @@
 //    u = sum_q Wx[b,k,q,x] g[b,k,p,q,c], reusing K1's weights. Bound by
 //    bytes: g, the weights and dF are each moved once (about 0.18 GB in
 //    bf16 at 32 images, K = 128); the operations are few for the same
-//    sparsity as K2's. The TPU kernel accumulated dF over ROI blocks in
-//    one resident f32 block; blocks on Hopper run in no order, so this
-//    kernel gathers instead of scattering: one block owns one feature
-//    row y of one image and a slice of kBwdThreads channels, keeps that
-//    row's f32 sums in shared memory (each thread its own channel
-//    column, so no atomics and no bank conflicts), walks the image's
-//    ROIs in order and skips those whose Wy rows miss y. The sum order
-//    is fixed, so the result is the same in every run. Rounding follows
-//    the Pallas kernel: g and u in the features' dtype (u summed in f32
-//    and rounded to bf16 for bf16 input, pallas_roi_align.py:170), dF
-//    summed in f32 and rounded once to the features' dtype (:346).
+//    sparsity as K2's. The row gather it replaces gave each block one
+//    feature row of one image and walked all K ROIs in it, reading each
+//    ROI's Wy column with strided loads and its Wx rows again for every
+//    ROI that hit the row, over the full map width (45x the byte bound
+//    at 32 x 128, and 112 blocks at one image, fewer than the 132 SMs).
+//    It is now the one-level case of roi_common.cuh:backward_tile:
+//    roi_spans_kernel reads each ROI's non-zero row and column span off
+//    its K1 rows (one warp per ROI), and one 4-warp block owns an 8 x 4
+//    pixel tile and 256 channels, lists the ROIs whose spans meet the
+//    tile in index order and reads only the tile's slices of their Wy and
+//    Wx rows. The sum order is the row gather's, so the result is the
+//    same bit for bit, in every run. Rounding follows the Pallas kernel:
+//    u rounded to the features' dtype (pallas_roi_align.py:170), dF
+//    summed in f32 and rounded once (:346).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,17 +64,23 @@
 
 namespace {
 
+using livecell::backward_tile;
 using livecell::from_f32;
+using livecell::kMaxBins;
+using livecell::kSlice;
+using livecell::kSpanThreads;
+using livecell::kTileMinBlocks;
+using livecell::kTileThreads;
+using livecell::kTileX;
+using livecell::kTileY;
 using livecell::pool_roi;
 using livecell::pooled_weight;
-using livecell::round_to;
+using livecell::RowWeights;
+using livecell::TileShared;
 using livecell::to_f32;
 
 constexpr int kFwdThreads = 256;
 constexpr int kWeightThreads = 256;
-constexpr int kBwdThreads = 128;   // channels per backward block
-constexpr int kBwdRoiChunk = 64;   // ROIs whose Wy column is staged at once
-constexpr int kMaxBins = 16;       // largest out_size the backward takes
 
 template <typename T>
 __global__ void __launch_bounds__(kWeightThreads)
@@ -140,101 +149,80 @@ cudaError_t launch_fwd(const void* feat, const void* wy, const void* wx,
   return cudaGetLastError();
 }
 
-// Dynamic shared memory: the row's f32 sums [w][kBwdThreads], the ROI's
-// n Wx rows [n][w], each thread's n gradient values [n][kBwdThreads],
-// then per column x the first and last bin q whose Wx tap is non-zero.
+// K3's pre-pass: one warp per ROI finds the first and last feature row
+// where any of its n Wy rows is non-zero, and the same over its Wx rows:
+// spans[roi] = (y_lo, y_hi, x_lo, x_hi), lo = size and hi = -1 if none.
 template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
-roi_align_bwd_kernel(const T* __restrict__ g, const T* __restrict__ wy,
-                     const T* __restrict__ wx, T* __restrict__ dfeat, int k,
-                     int n, int h, int w, int c) {
-  extern __shared__ float smem[];
-  float* acc = smem;                          // [w, kBwdThreads]
-  float* sx = acc + w * kBwdThreads;          // [n, w]
-  float* gs = sx + n * w;                     // [n, kBwdThreads]
-  int* qlo = reinterpret_cast<int*>(gs + n * kBwdThreads);  // [w]
-  int* qhi = qlo + w;                                        // [w]
-  __shared__ float s_wy[kBwdRoiChunk * kMaxBins];
-
-  const int y = blockIdx.x;
-  const int b = blockIdx.y;
-  const int t = threadIdx.x;
-  const int ch = blockIdx.z * kBwdThreads + t;
-  const bool live = ch < c;
-  for (int x = 0; x < w; ++x) acc[x * kBwdThreads + t] = 0.0f;
-
-  for (int k0 = 0; k0 < k; k0 += kBwdRoiChunk) {
-    const int kc = min(kBwdRoiChunk, k - k0);
-    __syncthreads();  // the previous chunk's readers are done
-    // Column y of the chunk's Wy rows: s_wy[kk * n + p].
-    const size_t wy0 = ((size_t)b * k + k0) * n;
-    for (int i = t; i < kc * n; i += kBwdThreads)
-      s_wy[i] = to_f32(wy[(wy0 + i) * h + y]);
-    __syncthreads();
-    for (int kk = 0; kk < kc; ++kk) {
-      bool hit = false;
-      for (int p = 0; p < n; ++p) hit |= s_wy[kk * n + p] != 0.0f;
-      if (!hit) continue;  // uniform across the block
-      const size_t roi = (size_t)b * k + k0 + kk;
-      __syncthreads();  // the previous ROI's readers of sx/qlo are done
-      const T* wx_roi = wx + roi * n * w;
-      for (int x = t; x < w; x += kBwdThreads) {
-        int lo = n, hi = -1;
-        for (int q = 0; q < n; ++q) {
-          const float v = to_f32(wx_roi[q * w + x]);
-          sx[q * w + x] = v;
-          if (v != 0.0f) {
-            lo = min(lo, q);
-            hi = q;
-          }
-        }
-        qlo[x] = lo;
-        qhi[x] = hi;
-      }
-      __syncthreads();
-      if (!live) continue;
-      const T* g_roi = g + roi * n * n * c + ch;
-      for (int p = 0; p < n; ++p) {
-        const float wyv = s_wy[kk * n + p];
-        if (wyv == 0.0f) continue;
-        for (int q = 0; q < n; ++q)
-          gs[q * kBwdThreads + t] = to_f32(g_roi[((size_t)p * n + q) * c]);
-        for (int x = 0; x < w; ++x) {
-          const int lo = qlo[x], hi = qhi[x];
-          if (lo > hi) continue;
-          float u = 0.0f;
-          for (int q = lo; q <= hi; ++q)
-            u = fmaf(sx[q * w + x], gs[q * kBwdThreads + t], u);
-          float& a = acc[x * kBwdThreads + t];
-          a = fmaf(wyv, round_to<T>(u), a);
-        }
+__global__ void __launch_bounds__(kSpanThreads)
+roi_spans_kernel(const T* __restrict__ wy, const T* __restrict__ wx,
+                 int4* __restrict__ spans, long long rois, int n, int h,
+                 int w) {
+  const long long roi =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (roi >= rois) return;  // a whole warp leaves together
+  int lo[2], hi[2];
+  for (int a = 0; a < 2; ++a) {
+    const int size = a ? w : h;
+    const T* rows = (a ? wx : wy) + roi * n * size;
+    int l = size, u = -1;
+    for (int i = lane; i < n * size; i += 32) {
+      if (to_f32(rows[i]) != 0.0f) {
+        l = min(l, i % size);
+        u = max(u, i % size);
       }
     }
+    lo[a] = __reduce_min_sync(0xffffffffu, l);
+    hi[a] = __reduce_max_sync(0xffffffffu, u);
   }
-  if (!live) return;
-  T* drow = dfeat + (((size_t)b * h + y) * w) * c + ch;
-  for (int x = 0; x < w; ++x)
-    drow[(size_t)x * c] = from_f32<T>(acc[x * kBwdThreads + t]);
+  if (lane == 0) spans[roi] = make_int4(lo[0], hi[0], lo[1], hi[1]);
+}
+
+// Grid (tiles of the map x channel slices, the slices of a tile side by
+// side; images); the shared memory is roi_common.cuh:TileShared, static.
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads, kTileMinBlocks)
+roi_align_bwd_kernel(const T* __restrict__ g, const T* __restrict__ wy,
+                     const T* __restrict__ wx, const int4* __restrict__ spans,
+                     T* __restrict__ dfeat, int k, int n, int h, int w,
+                     int c) {
+  __shared__ TileShared sm;
+  const int slices = (c + kSlice - 1) / kSlice;
+  const int tile = blockIdx.x / slices, tiles_x = (w + kTileX - 1) / kTileX;
+  const size_t roi0 = (size_t)blockIdx.y * k;
+  const RowWeights<T> wt{wy + roi0 * n * h, wx + roi0 * n * w, n, h, w};
+  backward_tile<T>(wt, spans + roi0, g + roi0 * n * n * c,
+                   dfeat + (size_t)blockIdx.y * h * w * c, k, n, h, w, c,
+                   tile / tiles_x * kTileY, tile % tiles_x * kTileX,
+                   blockIdx.x % slices * kSlice, sm);
+}
+
+template <typename T>
+cudaError_t launch_spans(const void* wy, const void* wx, void* spans,
+                         long long rois, int n, int h, int w,
+                         cudaStream_t stream) {
+  const long long blocks = (rois * 32 + kSpanThreads - 1) / kSpanThreads;
+  roi_spans_kernel<T><<<blocks, kSpanThreads, 0, stream>>>(
+      static_cast<const T*>(wy), static_cast<const T*>(wx),
+      static_cast<int4*>(spans), rois, n, h, w);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_bwd(const void* g, const void* wy, const void* wx,
-                       void* dfeat, int b, int k, int n, int h, int w, int c,
-                       cudaStream_t stream) {
-  const size_t smem = ((size_t)w * kBwdThreads + (size_t)n * w +
-                       (size_t)n * kBwdThreads) * sizeof(float) +
-                      2 * (size_t)w * sizeof(int);
-  // The 48 KB default covers static and dynamic shared memory together.
-  if (smem + kBwdRoiChunk * kMaxBins * sizeof(float) > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        roi_align_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+                       void* spans, void* dfeat, int b, int k, int n, int h,
+                       int w, int c, cudaStream_t stream) {
+  if ((long long)b * k > 0) {
+    const cudaError_t e =
+        launch_spans<T>(wy, wx, spans, (long long)b * k, n, h, w, stream);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid(h, b, (c + kBwdThreads - 1) / kBwdThreads);
-  roi_align_bwd_kernel<T><<<grid, kBwdThreads, smem, stream>>>(
+  const int tiles = ((h + kTileY - 1) / kTileY) * ((w + kTileX - 1) / kTileX);
+  const dim3 grid(tiles * ((c + kSlice - 1) / kSlice), b);
+  roi_align_bwd_kernel<T><<<grid, kTileThreads, 0, stream>>>(
       static_cast<const T*>(g), static_cast<const T*>(wy),
-      static_cast<const T*>(wx), static_cast<T*>(dfeat), k, n, h, w, c);
+      static_cast<const T*>(wx), static_cast<const int4*>(spans),
+      static_cast<T*>(dfeat), k, n, h, w, c);
   return cudaGetLastError();
 }
 
@@ -277,18 +265,48 @@ int livecell_roi_align_fwd(const void* feat, const void* wy, const void* wx,
   return (int)e;
 }
 
-// g [b, k, n, n, c], wy [b, k, n, h], wx [b, k, n, w] -> dfeat
-// [b, h, w, c] (written whole), all bf16 if `bf16`, else f32.
-int livecell_roi_align_bwd(const void* g, const void* wy, const void* wx,
-                           void* dfeat, int b, int k, int n, int h, int w,
-                           int c, int bf16, void* stream) {
-  if (b * h == 0 || w == 0 || c == 0) return 0;
-  if (n > kMaxBins) return (int)cudaErrorInvalidValue;
+// wy [rois, n, h], wx [rois, n, w] -> spans [rois] int4 (y_lo, y_hi,
+// x_lo, x_hi), K3's pre-pass alone (the backward launches it itself).
+int livecell_roi_spans(const void* wy, const void* wx, void* spans,
+                       long long rois, int n, int h, int w, int bf16,
+                       void* stream) {
+  if (rois == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      bf16 ? launch_bwd<__nv_bfloat16>(g, wy, wx, dfeat, b, k, n, h, w, c, st)
-           : launch_bwd<float>(g, wy, wx, dfeat, b, k, n, h, w, c, st);
+      bf16 ? launch_spans<__nv_bfloat16>(wy, wx, spans, rois, n, h, w, st)
+           : launch_spans<float>(wy, wx, spans, rois, n, h, w, st);
   return (int)e;
+}
+
+// g [b, k, n, n, c], wy [b, k, n, h], wx [b, k, n, w] -> dfeat
+// [b, h, w, c] (written whole), all bf16 if `bf16`, else f32; spans
+// [b, k] int4 is the pre-pass's scratch. c a multiple of 8, g and dfeat
+// 16-byte aligned.
+int livecell_roi_align_bwd(const void* g, const void* wy, const void* wx,
+                           void* spans, void* dfeat, int b, int k, int n,
+                           int h, int w, int c, int bf16, void* stream) {
+  if (b * h == 0 || w == 0 || c == 0) return 0;
+  if (n > kMaxBins || c % livecell::kVec != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      bf16 ? launch_bwd<__nv_bfloat16>(g, wy, wx, spans, dfeat, b, k, n, h,
+                                       w, c, st)
+           : launch_bwd<float>(g, wy, wx, spans, dfeat, b, k, n, h, w, c, st);
+  return (int)e;
+}
+
+// Resident blocks of the backward kernel on one SM, or minus the CUDA
+// error.
+int livecell_roi_align_bwd_blocks_per_sm(int bf16) {
+  int blocks = 0;
+  const cudaError_t e =
+      bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &blocks, roi_align_bwd_kernel<__nv_bfloat16>, kTileThreads,
+                 0)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &blocks, roi_align_bwd_kernel<float>, kTileThreads, 0);
+  return e == cudaSuccess ? blocks : -(int)e;
 }
 
 const char* livecell_cuda_error_string(int code) {

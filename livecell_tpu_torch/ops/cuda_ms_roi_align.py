@@ -8,7 +8,10 @@ assign_levels, ms_roi_align_pallas).
   K5 `ms_roi_align_fwd` four maps [B,H_l,W_l,C], boxes, levels ->
      [B,K,n,n,C]: each ROI pooled from its own level only.
   K6 `ms_roi_align_bwd` g [B,K,n,n,C], boxes, levels -> the four maps'
-     gradients, weights recomputed inside the kernel.
+     gradients, weights recomputed inside the kernel: the pre-pass
+     `ms_roi_spans` (each ROI's non-zero span on its own level, empty on
+     the others) then K3's tiled gather on four levels; one count per
+     call for the two launches.
 
 As for every kernel of the port: a launch counter per wrapper
 (`<wrapper>.launches`), a plain PyTorch version beside it, and a wrapper
@@ -35,7 +38,8 @@ import torch
 from livecell_tpu_torch.config import ROUTES
 from livecell_tpu_torch.ops import _build
 from livecell_tpu_torch.ops.cuda_roi_align import (
-    _DTYPES, _require_cuda, _stream, roi_align_fwd_plain, roi_weights_plain)
+    _DTYPES, _check_tiled, _require_aligned, _require_cuda, _stream,
+    roi_align_fwd_plain, roi_spans_plain, roi_weights_plain)
 
 LEVELS = 4
 # The plain versions pool ROIs in chunks whose f32 intermediates
@@ -50,9 +54,14 @@ def _lib() -> ctypes.CDLL:
     lib.livecell_ms_roi_align_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i,
                                               i, i, p]
     lib.livecell_ms_roi_align_fwd.restype = i
-    lib.livecell_ms_roi_align_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                              i, i, p]
+    lib.livecell_ms_roi_spans.argtypes = [p, p, p, p, p, ctypes.c_longlong,
+                                          i, i, i, p]
+    lib.livecell_ms_roi_spans.restype = i
+    lib.livecell_ms_roi_align_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i,
+                                              i, i, i, p]
     lib.livecell_ms_roi_align_bwd.restype = i
+    lib.livecell_ms_roi_align_bwd_blocks_per_sm.argtypes = [i]
+    lib.livecell_ms_roi_align_bwd_blocks_per_sm.restype = i
     lib.livecell_ms_roi_align_error_string.argtypes = [i]
     lib.livecell_ms_roi_align_error_string.restype = ctypes.c_char_p
     return lib
@@ -198,6 +207,48 @@ def ms_roi_align_bwd_plain(g: torch.Tensor, boxes: torch.Tensor,
     return tuple(out)
 
 
+def ms_roi_spans_plain(boxes: torch.Tensor, levels: torch.Tensor,
+                       feat_hw: Sequence[Tuple[int, int]], out_size: int = 7,
+                       sampling_ratio: int = 2,
+                       dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain version of K6's pre-pass: per level, K3's plain spans of
+    K1's plain weights rounded to `dtype` (`level_weights`), so a ROI
+    has an empty span (lo = size, hi = -1) on every level but its own:
+    [4, B, K, 4] int32 (y_lo, y_hi, x_lo, x_hi)."""
+    return torch.stack([
+        roi_spans_plain(*level_weights(boxes, levels, lvl, hw, out_size,
+                                       sampling_ratio, dtype))
+        for lvl, hw in enumerate(feat_hw)])
+
+
+def ms_roi_spans(boxes: torch.Tensor, levels: torch.Tensor,
+                 feat_hw: Sequence[Tuple[int, int]], out_size: int = 7,
+                 sampling_ratio: int = 2,
+                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """K6's pre-pass alone (ms_roi_align_bwd launches it itself): boxes
+    [B,K,4] f32, levels [B,K] int32 -> [4, B, K, 4] int32 spans."""
+    if boxes.device.type == "cpu":
+        return ms_roi_spans_plain(boxes, levels, feat_hw, out_size,
+                                  sampling_ratio, dtype)
+    b, k = boxes.shape[:2]
+    if boxes.dtype != torch.float32 or levels.dtype != torch.int32 \
+            or tuple(boxes.shape) != (b, k, 4) \
+            or tuple(levels.shape) != (b, k) or len(feat_hw) != LEVELS \
+            or dtype not in _DTYPES:
+        raise ValueError(f"ms_roi_spans kernel takes f32 [B, K, 4] boxes, "
+                         f"int32 [B, K] levels, {LEVELS} maps and bf16 or "
+                         f"f32 weights")
+    dev = _require_cuda(boxes, levels)
+    spans = torch.empty((LEVELS, b, k, 4), dtype=torch.int32, device=dev)
+    _check(_lib().livecell_ms_roi_spans(
+        (ctypes.c_int * LEVELS)(*(h for h, _ in feat_hw)),
+        (ctypes.c_int * LEVELS)(*(w for _, w in feat_hw)),
+        boxes.data_ptr(), levels.data_ptr(), spans.data_ptr(), b * k,
+        out_size, sampling_ratio, int(dtype == torch.bfloat16),
+        _stream(dev)), "ms_roi_spans")
+    return spans
+
+
 def ms_roi_align_bwd(g: torch.Tensor, boxes: torch.Tensor,
                      levels: torch.Tensor,
                      feat_hw: Sequence[Tuple[int, int]],
@@ -208,7 +259,6 @@ def ms_roi_align_bwd(g: torch.Tensor, boxes: torch.Tensor,
     if g.device.type == "cpu":
         return ms_roi_align_bwd_plain(g, boxes, levels, feat_hw,
                                       sampling_ratio)
-    dev = _require_cuda(g, boxes, levels)
     b, k, n, _, c = g.shape
     if g.dtype not in _DTYPES or boxes.dtype != torch.float32 \
             or levels.dtype != torch.int32:
@@ -217,30 +267,39 @@ def ms_roi_align_bwd(g: torch.Tensor, boxes: torch.Tensor,
                          f"{boxes.dtype}, {levels.dtype}")
     if len(feat_hw) != LEVELS or tuple(g.shape) != (b, k, n, n, c) \
             or tuple(boxes.shape) != (b, k, 4) \
-            or tuple(levels.shape) != (b, k) or n > 16:
+            or tuple(levels.shape) != (b, k):
         raise ValueError(f"g {tuple(g.shape)}, boxes {tuple(boxes.shape)}, "
                          f"levels {tuple(levels.shape)} and {len(feat_hw)} "
-                         f"maps do not fit (4 maps, at most 16 bins)")
-    widest = max(w for _, w in feat_hw)
-    # A feature row's f32 sums for 128 channels, a ROI's Wx rows and the
-    # threads' g values in shared memory.
-    if (widest * 128 + n * widest + n * 128) * 4 + 8 * widest > 200 * 1024:
-        raise ValueError(f"level width {widest} too large for the "
-                         f"ms_roi_align_bwd kernel's shared-memory row")
+                         f"maps do not fit ({LEVELS} maps)")
+    _check_tiled("ms_roi_align_bwd", n, c)
+    dev = _require_cuda(g, boxes, levels)
+    _require_aligned(g)
+    spans = torch.empty((LEVELS, b, k, 4), dtype=torch.int32, device=dev)
     dfeats = [torch.empty((b, h, w, c), dtype=g.dtype, device=dev)
               for h, w in feat_hw]
     code = _lib().livecell_ms_roi_align_bwd(
         (ctypes.c_void_p * LEVELS)(*(d.data_ptr() for d in dfeats)),
         (ctypes.c_int * LEVELS)(*(h for h, _ in feat_hw)),
         (ctypes.c_int * LEVELS)(*(w for _, w in feat_hw)),
-        g.data_ptr(), boxes.data_ptr(), levels.data_ptr(), b, k, n, c,
-        sampling_ratio, int(g.dtype == torch.bfloat16), _stream(dev))
+        g.data_ptr(), boxes.data_ptr(), levels.data_ptr(), spans.data_ptr(),
+        b, k, n, c, sampling_ratio, int(g.dtype == torch.bfloat16),
+        _stream(dev))
     _check(code, "ms_roi_align_bwd")
     ms_roi_align_bwd.launches += 1
     return tuple(dfeats)
 
 
 ms_roi_align_bwd.launches = 0
+
+
+def ms_roi_align_bwd_blocks_per_sm(dtype: torch.dtype) -> int:
+    """Blocks of K6's main kernel resident on one SM of the current card
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    blocks = _lib().livecell_ms_roi_align_bwd_blocks_per_sm(
+        int(dtype == torch.bfloat16))
+    if blocks < 0:
+        _check(-blocks, "ms_roi_align_bwd occupancy")
+    return blocks
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,9 @@ counter (`<wrapper>.launches`, raised by one per kernel launch):
   K2 `roi_align_fwd` features [B,H,W,C], Wy, Wx -> [B,K,n,n,C]
      (replaces `_fwd_kernel`).
   K3 `roi_align_bwd` g [B,K,n,n,C], Wy, Wx -> dfeatures [B,H,W,C]
-     (replaces `_bwd_kernel`).
+     (replaces `_bwd_kernel`): the pre-pass `roi_spans` (each ROI's
+     non-zero row and column span) then the tiled gather; one count per
+     call for the two launches.
 
 A wrapper given CPU tensors computes its plain version; given CUDA
 tensors it launches its kernel or raises on a dtype, shape or layout
@@ -49,9 +51,13 @@ def _lib() -> ctypes.CDLL:
     lib.livecell_roi_align_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                            p]
     lib.livecell_roi_align_fwd.restype = i
-    lib.livecell_roi_align_bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
-                                           p]
+    lib.livecell_roi_spans.argtypes = [p, p, p, ll, i, i, i, i, p]
+    lib.livecell_roi_spans.restype = i
+    lib.livecell_roi_align_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                           i, p]
     lib.livecell_roi_align_bwd.restype = i
+    lib.livecell_roi_align_bwd_blocks_per_sm.argtypes = [i]
+    lib.livecell_roi_align_bwd_blocks_per_sm.restype = i
     lib.livecell_cuda_error_string.argtypes = [i]
     lib.livecell_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -82,6 +88,26 @@ def _require_cuda(*tensors: torch.Tensor) -> torch.device:
 
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+# The tiled backward kernels (K3, K6) load and store a lane's 8 channels
+# as 16-byte vectors, and take at most 16 bins.
+VEC_CHANNELS = 8
+MAX_BINS = 16
+
+
+def _check_tiled(what: str, n: int, c: int) -> None:
+    if n > MAX_BINS:
+        raise ValueError(f"{what} kernel takes at most {MAX_BINS} bins, "
+                         f"got {n}")
+    if c % VEC_CHANNELS:
+        raise ValueError(f"{what} kernel takes channels in multiples of "
+                         f"{VEC_CHANNELS}, got {c}")
+
+
+def _require_aligned(*tensors: torch.Tensor) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("expected 16-byte aligned tensors")
 
 
 # ---------------------------------------------------------------------------
@@ -218,13 +244,47 @@ def roi_align_bwd_plain(g: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
     return d.to(g.dtype)
 
 
+def roi_spans_plain(wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3's pre-pass: each ROI's non-zero extent over its
+    n weight rows, [B, K, 4] int32 (y_lo, y_hi, x_lo, x_hi), inclusive;
+    an axis with no non-zero weight gets lo = size, hi = -1."""
+    def axis(wt):
+        size = wt.shape[-1]
+        nz = (wt != 0).any(dim=-2)                       # [B, K, size]
+        idx = torch.arange(size, device=wt.device)
+        return (torch.where(nz, idx, size).amin(-1),
+                torch.where(nz, idx, -1).amax(-1))
+
+    (ylo, yhi), (xlo, xhi) = axis(wy), axis(wx)
+    return torch.stack([ylo, yhi, xlo, xhi], dim=-1).to(torch.int32)
+
+
+def roi_spans(wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
+    """K3's pre-pass alone (roi_align_bwd launches it itself): Wy
+    [B,K,n,H], Wx [B,K,n,W] of one dtype -> [B, K, 4] int32 spans."""
+    if wy.device.type == "cpu":
+        return roi_spans_plain(wy, wx)
+    b, k, n, h = wy.shape
+    w = wx.shape[-1]
+    if wy.dtype not in _DTYPES or wx.dtype != wy.dtype \
+            or tuple(wx.shape) != (b, k, n, w):
+        raise ValueError(f"roi_spans kernel takes bf16 or f32 weights of one "
+                         f"dtype, got {wy.dtype} {tuple(wy.shape)}, "
+                         f"{wx.dtype} {tuple(wx.shape)}")
+    dev = _require_cuda(wy, wx)
+    spans = torch.empty((b, k, 4), dtype=torch.int32, device=dev)
+    _check(_lib().livecell_roi_spans(
+        wy.data_ptr(), wx.data_ptr(), spans.data_ptr(), b * k, n, h, w,
+        int(wy.dtype == torch.bfloat16), _stream(dev)), "roi_spans")
+    return spans
+
+
 def roi_align_bwd(g: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
                   feat_hw: Tuple[int, int]) -> torch.Tensor:
     """K3 wrapper: g [B,K,n,n,C], Wy [B,K,n,H], Wx [B,K,n,W] of one dtype
     (bf16 or f32) -> dfeatures [B,H,W,C] in that dtype."""
     if g.device.type == "cpu":
         return roi_align_bwd_plain(g, wy, wx, feat_hw)
-    dev = _require_cuda(g, wy, wx)
     b, k, n, _, c = g.shape
     h, w = feat_hw
     if g.dtype not in _DTYPES or wy.dtype != g.dtype or wx.dtype != g.dtype:
@@ -232,25 +292,34 @@ def roi_align_bwd(g: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
                          f"weights of the same dtype, got {g.dtype}, "
                          f"{wy.dtype}, {wx.dtype}")
     if tuple(g.shape) != (b, k, n, n, c) or tuple(wy.shape) != (b, k, n, h) \
-            or tuple(wx.shape) != (b, k, n, w) or n > 16:
+            or tuple(wx.shape) != (b, k, n, w):
         raise ValueError(f"g {tuple(g.shape)}, weights {tuple(wy.shape)}, "
-                         f"{tuple(wx.shape)} do not fit a {h}x{w} map with "
-                         f"at most 16 bins")
-    # The kernel keeps a feature row's f32 sums for 128 channels, and a
-    # ROI's Wx rows, in shared memory.
-    if (w * 128 + n * w + n * 128) * 4 + 8 * w > 200 * 1024:
-        raise ValueError(f"feature map width {w} too large for the "
-                         f"roi_align_bwd kernel's shared-memory row")
+                         f"{tuple(wx.shape)} do not fit a {h}x{w} map")
+    _check_tiled("roi_align_bwd", n, c)
+    dev = _require_cuda(g, wy, wx)
+    _require_aligned(g)
+    spans = torch.empty((b, k, 4), dtype=torch.int32, device=dev)
     dfeat = torch.empty((b, h, w, c), dtype=g.dtype, device=dev)
     code = _lib().livecell_roi_align_bwd(
-        g.data_ptr(), wy.data_ptr(), wx.data_ptr(), dfeat.data_ptr(),
-        b, k, n, h, w, c, int(g.dtype == torch.bfloat16), _stream(dev))
+        g.data_ptr(), wy.data_ptr(), wx.data_ptr(), spans.data_ptr(),
+        dfeat.data_ptr(), b, k, n, h, w, c, int(g.dtype == torch.bfloat16),
+        _stream(dev))
     _check(code, "roi_align_bwd")
     roi_align_bwd.launches += 1
     return dfeat
 
 
 roi_align_bwd.launches = 0
+
+
+def roi_align_bwd_blocks_per_sm(dtype: torch.dtype) -> int:
+    """Blocks of K3's main kernel resident on one SM of the current card
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    blocks = _lib().livecell_roi_align_bwd_blocks_per_sm(
+        int(dtype == torch.bfloat16))
+    if blocks < 0:
+        _check(-blocks, "roi_align_bwd occupancy")
+    return blocks
 
 
 # ---------------------------------------------------------------------------

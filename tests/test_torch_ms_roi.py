@@ -226,3 +226,29 @@ def test_wrappers_take_plain_on_cpu_and_count_no_launch():
     with pytest.raises(ValueError):
         cms.ms_roi_align(port(feats, torch.bfloat16),
                          torch.from_numpy(boxes), backend="pallas")
+
+
+def test_bwd_wrapper_refuses_what_the_kernel_cannot_take():
+    """On the meta device (no data) K6's wrapper takes the kernel's road:
+    it checks the tiled kernel's limits (at most 16 bins, channels in
+    16-byte vectors of 8, four maps), then rejects a non-CUDA tensor
+    before any launch. No level is too wide any more."""
+    _, boxes = case("elongated")
+    bt = torch.from_numpy(boxes).to("meta")
+    lv = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+    hw = [(200, 4000), (100, 2000), (50, 1000), (25, 500)]
+
+    def g(n=7, c=8):
+        return torch.zeros((1, 4, n, n, c), dtype=torch.bfloat16,
+                           device="meta")
+
+    with pytest.raises(ValueError, match="CUDA"):
+        cms.ms_roi_align_bwd(g(), bt, lv, hw)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        cms.ms_roi_align_bwd(g(c=20), bt, lv, hw)
+    with pytest.raises(ValueError, match="at most 16 bins"):
+        cms.ms_roi_align_bwd(g(n=17), bt, lv, hw)
+    with pytest.raises(ValueError, match="4 maps"):
+        cms.ms_roi_align_bwd(g(), bt, lv, hw[:3])
+    with pytest.raises(ValueError, match="int32 levels"):
+        cms.ms_roi_align_bwd(g(), bt, lv.long(), hw)

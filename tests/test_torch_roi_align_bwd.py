@@ -86,7 +86,25 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
     assert cra.roi_align_bwd(g, wy.float(), wx, (14, 19)).shape == \
         (1, 14, 19, 8)
     # ... on the meta device (no data) the wrapper takes the kernel's
-    # road and rejects a non-CUDA tensor before any launch.
+    # road: it checks the tiled kernel's limits (at most 16 bins, channels
+    # in 16-byte vectors of 8), then rejects a non-CUDA tensor before any
+    # launch.
+    meta = [t.to("meta") for t in (g, wy, wx)]
     with pytest.raises(ValueError, match="CUDA"):
-        cra.roi_align_bwd(g.to("meta"), wy.to("meta"), wx.to("meta"),
-                          (14, 19))
+        cra.roi_align_bwd(*meta, (14, 19))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        cra.roi_align_bwd(torch.zeros((1, 3, 7, 7, 12), dtype=torch.bfloat16,
+                                      device="meta"), *meta[1:], (14, 19))
+    wy17, wx17 = cra.roi_weights_plain(torch.from_numpy(boxes), (14, 19), 17)
+    with pytest.raises(ValueError, match="at most 16 bins"):
+        cra.roi_align_bwd(torch.zeros((1, 3, 17, 17, 8), dtype=torch.bfloat16,
+                                      device="meta"), wy17.to("meta"),
+                          wx17.to("meta"), (14, 19))
+    with pytest.raises(ValueError, match="same dtype"):
+        cra.roi_align_bwd(meta[0], meta[1].float(), meta[2], (14, 19))
+    # No limit on the map's width: a 2,000-column map reaches the device
+    # check.
+    wyw, wxw = cra.roi_weights_plain(torch.from_numpy(boxes), (14, 2000))
+    with pytest.raises(ValueError, match="CUDA"):
+        cra.roi_align_bwd(meta[0], wyw.to("meta"), wxw.to("meta"),
+                          (14, 2000))
