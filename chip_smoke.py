@@ -10,8 +10,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
   3. kernels: every kernel against its plain PyTorch version on the card,
      each within its stated tolerance, timed with CUDA events and the
      profiler: K1 (roi_weights) and K2 (roi_align_fwd) at the serving
-     shapes (25 tiles, 56x76x256 map, K in {50, 256}, bf16 and f32) and
-     at the training shape (32 images, K = 128, bf16); K4
+     shapes (25 tiles, 56x76x256 map, K in {50, 256}, and request (b)'s
+     one tile, K = 50; bf16 and f32) and at the training shape (32
+     images, K = 128, bf16); K2 also equal to its plain version bit for
+     bit in bf16 (`equal_to_plain`, recorded in f32), two calls equal
+     bit for bit, its resident blocks per SM (at least 2), and within
+     tolerance on weights of sampling ratio 6 (rows longer than its tap
+     lists); K4
      (match_anchors, full and max-only) at the fixed mode's 32 images x
      128 GT and the quirk mode's 1 x 4,096; K3 (roi_align_bwd, bf16 and
      f32) at 32 x 128 and 1 x 128 ROIs and on one box covering the map,
@@ -45,8 +50,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      canvas (256 channels) at the training shapes (4 images, K = 512 at
      7x7 and K = 128 at 14x14) and the serving shapes (25 tiles, K =
      1,000 at 7x7 and K = 100 at 14x14), in bf16 and f32, on elongated
-     boxes and on one box covering the canvas; K6 as K3 above, and a
-     level without ROIs must get an all-zero gradient; K4 (full) at
+     boxes and on one box covering the canvas; K5 as K2 above; K6 as
+     K3 above, and a level without ROIs must get an all-zero gradient;
+     K4 (full) at
      217,413 anchors x 4 images x 128 GT; timed with CUDA events and the
      profiler (a kernel's device time sums every kernel its wrapper
      launches, pre-pass included);
@@ -215,6 +221,7 @@ def k12_cases(cra, feat: torch.Tensor, boxes: torch.Tensor) -> list:
                (wx.float() - px.float()).abs().max().item())
     # K2, on the kernel's own weights.
     out = cra.roi_align_fwd(feat, wy, wx)
+    same = torch.equal(out, cra.roi_align_fwd(feat, wy, wx))
     ref = cra.roi_align_fwd_plain(feat, wy, wx)
     diff = (out.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
@@ -224,10 +231,18 @@ def k12_cases(cra, feat: torch.Tensor, boxes: torch.Tensor) -> list:
     # taps, 1e-5 relative.
     tol2 = (2 * 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) \
         * max(scale, 1.0)
+    # The kernel sums the non-zero taps in order, as the plain einsum does
+    # over its zeros: in bf16 the two agree bit for bit; in f32 cuBLAS may
+    # take its own order (recorded, not required).
+    exact = torch.equal(out, ref)
+    blocks = cra.roi_align_fwd_blocks_per_sm(dtype)
     torch.cuda.synchronize()
     log(f"[kernels] {name}: K1 max_err {err1:.3g} (tol "
-        f"{TOL_K1[dtype]:.3g}), K2 max_err {diff:.3g} (tol {tol2:.3g})")
-    if not (err1 <= TOL_K1[dtype] and diff <= tol2):
+        f"{TOL_K1[dtype]:.3g}), K2 max_err {diff:.3g} (tol {tol2:.3g}), "
+        f"equal to plain {exact}, two calls equal {same}, blocks/SM "
+        f"{blocks}")
+    if not (err1 <= TOL_K1[dtype] and diff <= tol2 and same and blocks >= 2
+            and (exact or dtype != torch.bfloat16)):
         raise AssertionError(f"kernel disagrees with plain at {name}")
     # The library call rounds at other points (bf16 products or bf16 row
     # sums, then the output): each side is off by at most ~2 bf16
@@ -250,16 +265,18 @@ def k12_cases(cra, feat: torch.Tensor, boxes: torch.Tensor) -> list:
     k2_ops = k2_operations(wy, wx, C)
     shape = dict(B=feat.shape[0], H=H, W=W, C=C, K=k, dtype=str(dtype))
     cases = []
-    for kname, fn, plain, library, nbytes, ops, err, tol in (
+    for kname, fn, plain, library, nbytes, ops, err, tol, extra in (
         ("roi_weights",
          lambda: cra.roi_weights(boxes, (H, W), OUT, RATIO, SCALE, dtype),
          lambda: cra.roi_weights_plain(boxes, (H, W), OUT, RATIO, SCALE,
                                        dtype),
-         None, k1_bytes, k1_ops, err1, TOL_K1[dtype]),
+         None, k1_bytes, k1_ops, err1, TOL_K1[dtype], {}),
         ("roi_align_fwd", lambda: cra.roi_align_fwd(feat, wy, wx),
          lambda: cra.roi_align_fwd_plain(feat, wy, wx),
          lambda: k2_library(feat, wy, wx),
-         k2_bytes, k2_ops, diff, tol2),
+         k2_bytes, k2_ops, diff, tol2,
+         dict(two_calls_equal=same, equal_to_plain=exact,
+              blocks_per_sm=blocks)),
     ):
         bms, bby = bound(nbytes, ops)
         cases.append(dict(
@@ -269,7 +286,8 @@ def k12_cases(cra, feat: torch.Tensor, boxes: torch.Tensor) -> list:
             library_err=err_lib if library else None,
             library_tol=tol_lib if library else None,
             kernel_ms=kernel_ms(fn, (kname + "_kernel",)),
-            bound_ms=bms, bound_by=bby, bytes=nbytes, operations=ops))
+            bound_ms=bms, bound_by=bby, bytes=nbytes, operations=ops,
+            **extra))
     del out, ref, wy, wx, py, px
     torch.cuda.empty_cache()
     return cases
@@ -284,6 +302,31 @@ def phase_kernels(cra) -> list:
         boxes = make_boxes(k, gen).to(dev)
         for dtype in (torch.bfloat16, torch.float32):
             cases += k12_cases(cra, feat32.to(dtype), boxes)
+            if k == 50:
+                # Request (b): one tile.
+                cases += k12_cases(cra, feat32[:1].to(dtype),
+                                   boxes[:1].contiguous())
+    # Weights of sampling ratio 6 on boxes of about the map's size and
+    # larger have rows of more non-zero taps than K2's lists hold: such a
+    # ROI is gathered from its weight rows. Up to 12 taps a row are summed
+    # in another order than the plain einsum's: K2's tolerance, 2 bf16
+    # ulps.
+    feat = feat32[:1].to(torch.bfloat16)
+    big = torch.tensor([[[0.0, 0.0, 4.0 * W, 4.0 * H],
+                         [-100.0, -60.0, 4.0 * W + 90.0, 4.0 * H + 70.0],
+                         [30.0, 20.0, 250.0, 190.0]]], device=dev)
+    wy, wx = cra.roi_weights(big, (H, W), OUT, 6, SCALE, torch.bfloat16)
+    long_rows = int((cra.roi_taps_plain(wy, wx)[2] > 2 * cra.MAX_RATIO)
+                    .sum())
+    ref = cra.roi_align_fwd_plain(feat, wy, wx)
+    err = (cra.roi_align_fwd(feat, wy, wx).float() - ref.float()).abs() \
+        .max().item()
+    tol = 2 * 2.0 ** -7 * max(ref.float().abs().max().item(), 1.0)
+    log(f"[kernels] K2 at sampling ratio 6, B=1 K=3 bf16: "
+        f"{long_rows} rows longer than a list, max_err {err:.3g} (tol "
+        f"{tol:.3g})")
+    if not (long_rows and err <= tol):
+        raise AssertionError("K2 disagrees with plain on long rows")
     return cases
 
 
@@ -812,7 +855,12 @@ def ms_roi_cases(cms, feats: list, boxes: torch.Tensor, out_size: int,
     hw = [tuple(f.shape[1:3]) for f in feats]
     levels = cms.assign_levels(boxes)
     out = cms.ms_roi_align_fwd(feats, boxes, levels, out_size)
+    same5 = torch.equal(out, cms.ms_roi_align_fwd(feats, boxes, levels,
+                                                  out_size))
     ref = cms.ms_roi_align_fwd_plain(feats, boxes, levels, out_size)
+    # As K2: bit for bit in bf16, recorded in f32.
+    exact5 = torch.equal(out, ref)
+    blocks5 = cms.ms_roi_align_fwd_blocks_per_sm(dtype)
     err5 = (out.float() - ref.float()).abs().max().item()
     # K2's and K3's tolerances: bf16 rounds the row contraction (u) and
     # the output after f32 sums in another order, which can flip a
@@ -838,12 +886,16 @@ def ms_roi_cases(cms, feats: list, boxes: torch.Tensor, out_size: int,
     torch.cuda.synchronize()
     name = f"{label} B={b} K={k} s={out_size} {str(dtype).split('.')[-1]}"
     log(f"[kernels] {name} ROIs per level {per_level}: K5 max_err "
-        f"{err5:.3g} (tol {tol5:.3g}), K6 max_err {err6:.3g} (tol "
+        f"{err5:.3g} (tol {tol5:.3g}), equal to plain {exact5}, two calls "
+        f"equal {same5}, blocks/SM {blocks5}; K6 max_err {err6:.3g} (tol "
         f"{tol6:.3g}); K6 {json.dumps(spans)}; two calls equal {same}; "
         f"empty levels zero {empty_zero}; blocks/SM {blocks}")
-    if not (err5 <= tol5 and err6 <= tol6 and same and empty_zero
-            and spans["spans_cover"] and blocks >= 2):
-        raise AssertionError(f"K5/K6 disagree with plain at {name}")
+    if not (err5 <= tol5 and same5 and blocks5 >= 2
+            and (exact5 or dtype != torch.bfloat16)):
+        raise AssertionError(f"K5 disagrees with plain at {name}")
+    if not (err6 <= tol6 and same and empty_zero and spans["spans_cover"]
+            and blocks >= 2):
+        raise AssertionError(f"K6 disagrees with plain at {name}")
     del out, ref, dfs, drefs, again
 
     # What these inputs need: each level's weights (zero for the other
@@ -870,7 +922,9 @@ def ms_roi_cases(cms, feats: list, boxes: torch.Tensor, out_size: int,
         ("ms_roi_align_fwd",
          lambda: cms.ms_roi_align_fwd(feats, boxes, levels, out_size),
          lambda: cms.ms_roi_align_fwd_plain(feats, boxes, levels, out_size),
-         bytes5, ops5, err5, tol5, ("ms_roi_align_fwd_kernel",), {}),
+         bytes5, ops5, err5, tol5, ("ms_roi_align_fwd_kernel",),
+         dict(two_calls_equal=same5, equal_to_plain=exact5,
+              blocks_per_sm=blocks5)),
         ("ms_roi_align_bwd",
          lambda: cms.ms_roi_align_bwd(g, boxes, levels, hw),
          lambda: cms.ms_roi_align_bwd_plain(g, boxes, levels, hw),

@@ -16,13 +16,27 @@
 //    `ms_roi_align_pallas` (livecell_tpu/ops/pallas_ms_roi.py:57), which
 //    pools every ROI from all four levels with the Pallas kernels
 //    `_weights_kernel` and `_fwd_kernel` (pallas_roi_align.py:90,126) and
-//    keeps one level with `where`: 4x the work. Here one block owns one
-//    ROI: it computes the ROI's n Wy rows and n Wx rows for its own level
-//    into shared memory (n * (H_l + W_l) floats, 26 KB at P2 200x272 for
-//    n = 14) and runs K2's gather (roi_common.cuh:pool_roi) on that level's
-//    map only, threads across channels. Bound by bytes: each bin reads at
-//    most (2 ratio)^2 feature vectors; the least traffic is the output
-//    plus the feature pixels the taps touch.
+//    keeps one level with `where`: 4x the work. Bound by bytes: each bin
+//    reads at most (2 ratio)^2 feature vectors; the least traffic is the
+//    output plus the feature pixels the taps touch. Its first design gave
+//    a block one ROI and computed the ROI's n Wy rows and n Wx rows on its
+//    level in full into shared memory (pooled_weight at n (H_l + W_l)
+//    pixels, 3,304 at P2 for n = 7, though a row has at most 2 ratio
+//    non-zero taps; the dynamic shared memory sized by the largest level
+//    for every block, 26 KB for n = 14), scanned them again for each
+//    row's non-zero range, then each of 256 threads took one channel and
+//    walked every bin in series with 2-byte loads: 11x the byte bound at
+//    the serving shape, 27x at T3's 14x14. It is now
+//    roi_common.cuh:forward_roi on the ROI's own level with the weights
+//    computed from the box (BoxWeights): one block per ROI builds each
+//    row's list of non-zero taps, evaluating pooled_weight rounded to
+//    the map's dtype only over the bin's window (its samples widened by
+//    two pixels, clamped to the map), 2.4 KB of static shared memory on
+//    every level; its warps share out the bins, 8 channels a lane in
+//    16-byte vectors, each bin's tap loads issued before its
+//    multiply-adds. The sum order is the old gather's, so the output is
+//    the same bit for bit. The wrapper refuses a sampling ratio above 4,
+//    the most a list of 8 taps holds.
 //
 // K6 ms_roi_align_bwd_kernel replaces the composition's backward, the
 //    Pallas `_bwd_kernel` (pallas_roi_align.py:152) run once per level.
@@ -61,20 +75,22 @@ namespace {
 
 using livecell::backward_tile;
 using livecell::BoxWeights;
+using livecell::forward_roi;
+using livecell::FwdShared;
+using livecell::kFwdThreads;
 using livecell::kMaxBins;
+using livecell::kMaxRatio;
 using livecell::kSlice;
 using livecell::kSpanThreads;
 using livecell::kTileMinBlocks;
 using livecell::kTileThreads;
 using livecell::kTileX;
 using livecell::kTileY;
-using livecell::pool_roi;
 using livecell::pooled_weight;
 using livecell::round_to;
 using livecell::TileShared;
 
 constexpr int kLevels = 4;
-constexpr int kFwdThreads = 256;
 
 // The four level maps (or their gradients) and their geometry.
 struct Pyramid {
@@ -88,41 +104,22 @@ __device__ __forceinline__ int level_of(const int* levels, size_t roi) {
   return min(max(levels[roi], 0), kLevels - 1);
 }
 
-// Dynamic shared memory, sized for the largest level: the ROI's n Wy rows
-// (n*H_l floats), its n Wx rows (n*W_l floats), then the first and last
-// non-zero index of each of the 2n rows.
+// One block per ROI (b * k + ki), on its own level; the shared memory is
+// the ROI's tap lists, roi_common.cuh:FwdShared, static.
 template <typename T>
 __global__ void __launch_bounds__(kFwdThreads)
 ms_roi_align_fwd_kernel(Pyramid pyr, const float* __restrict__ boxes,
                         const int* __restrict__ levels, T* __restrict__ out,
                         int k, int n, int c, int ratio) {
-  extern __shared__ float smem[];
-  const int roi = blockIdx.x;  // b * k + ki
-  const int b = roi / k;
+  __shared__ FwdShared sm;
+  const int roi = blockIdx.x;
   const int l = level_of(levels, roi);
   const int h = pyr.h[l], w = pyr.w[l];
-  const float scale = pyr.scale[l];
-  float* sy = smem;                                 // [n, h]
-  float* sx = sy + n * h;                           // [n, w]
-  int* first = reinterpret_cast<int*>(sx + n * w);  // [2n]
-  int* last = first + 2 * n;                        // [2n]
-
-  const float* box = boxes + (size_t)roi * 4;
-  const float x0 = box[0], y0 = box[1], x1 = box[2], y1 = box[3];
-  // smem[i] for i < n*h is sy[i]; above, sx[i - n*h].
-  for (int i = threadIdx.x; i < n * (h + w); i += blockDim.x) {
-    const bool is_y = i < n * h;
-    const int j = is_y ? i : i - n * h;
-    const int size = is_y ? h : w;
-    smem[i] = round_to<T>(pooled_weight(is_y ? y0 : x0, is_y ? y1 : x1,
-                                        scale, n, size, ratio, j / size,
-                                        j % size));
-  }
-  __syncthreads();
-
-  const T* fb = static_cast<const T*>(pyr.ptr[l]) + (size_t)b * h * w * c;
-  pool_roi<T>(sy, sx, first, last, fb, out + (size_t)roi * n * n * c, n, h,
-              w, c);
+  const BoxWeights<T> wt{boxes, pyr.scale[l], n, h, w, ratio};
+  forward_roi<T>(wt, roi,
+                 static_cast<const T*>(pyr.ptr[l]) +
+                     (size_t)(roi / k) * h * w * c,
+                 out + (size_t)roi * n * n * c, c, sm);
 }
 
 __host__ __device__ __forceinline__ int level_tiles(const Pyramid& pyr,
@@ -220,17 +217,7 @@ template <typename T>
 cudaError_t launch_fwd(const Pyramid& pyr, const void* boxes,
                        const void* levels, void* out, int b, int k, int n,
                        int c, int ratio, cudaStream_t stream) {
-  int most = 0;
-  for (int l = 0; l < kLevels; ++l) most = max(most, pyr.h[l] + pyr.w[l]);
-  const size_t smem =
-      (size_t)n * most * sizeof(float) + 4 * (size_t)n * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ms_roi_align_fwd_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  ms_roi_align_fwd_kernel<T><<<b * k, kFwdThreads, smem, stream>>>(
+  ms_roi_align_fwd_kernel<T><<<b * k, kFwdThreads, 0, stream>>>(
       pyr, static_cast<const float*>(boxes), static_cast<const int*>(levels),
       static_cast<T*>(out), k, n, c, ratio);
   return cudaGetLastError();
@@ -271,13 +258,17 @@ extern "C" {
 
 // feats: 4 pointers to [b, hs[l], ws[l], c] maps; boxes [b, k, 4] f32,
 // levels [b, k] int32 in 0..3 -> out [b, k, n, n, c], all maps and out
-// bf16 if `bf16`, else f32. Returns cudaGetLastError() after the launch.
+// bf16 if `bf16`, else f32. c a multiple of 8, the maps and out 16-byte
+// aligned, 1 <= ratio <= 4. Returns cudaGetLastError() after the launch.
 int livecell_ms_roi_align_fwd(void* const* feats, const int* hs,
                               const int* ws, const void* boxes,
                               const void* levels, void* out, int b, int k,
                               int n, int c, int ratio, int bf16,
                               void* stream) {
   if (b * k == 0 || c == 0) return 0;
+  if (n > kMaxBins || c % livecell::kVec != 0 || ratio < 1 ||
+      ratio > kMaxRatio)
+    return (int)cudaErrorInvalidValue;
   const Pyramid pyr = make_pyramid(feats, hs, ws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
@@ -325,6 +316,19 @@ int livecell_ms_roi_align_bwd(void* const* dfeats, const int* hs,
            : launch_bwd<float>(dpyr, g, boxes, levels, spans, b, k, n, c,
                                ratio, st);
   return (int)e;
+}
+
+// Resident blocks of the forward kernel on one SM, or minus the CUDA
+// error.
+int livecell_ms_roi_align_fwd_blocks_per_sm(int bf16) {
+  int blocks = 0;
+  const cudaError_t e =
+      bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &blocks, ms_roi_align_fwd_kernel<__nv_bfloat16>,
+                 kFwdThreads, 0)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &blocks, ms_roi_align_fwd_kernel<float>, kFwdThreads, 0);
+  return e == cudaSuccess ? blocks : -(int)e;
 }
 
 // Resident blocks of the backward kernel on one SM, or minus the CUDA

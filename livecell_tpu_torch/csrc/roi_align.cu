@@ -22,19 +22,24 @@
 // K2 roi_align_fwd_kernel replaces the Pallas kernel `_fwd_kernel`
 //    (pallas_roi_align.py:126, entry `roi_align_pallas`:197 via
 //    `_forward`:220). out[b,k,p,q,c] = sum_y sum_x Wy[b,k,p,y]
-//    Wx[b,k,q,x] F[b,y,x,c], f32 accumulation. Bound by bytes: each
-//    weight row has at most 2*ratio non-zero taps, so a bin gathers at
-//    most 16 feature vectors and the operations are few; the least
-//    traffic is the feature map read once plus the weights and the
+//    Wx[b,k,q,x] F[b,y,x,c], f32 accumulation, the row sum rounded to
+//    bf16 for bf16 input where the Pallas kernel rounds (:138). Bound by
+//    bytes: each weight row has at most 2*ratio non-zero taps, so a bin
+//    gathers at most 16 feature vectors and the operations are few; the
+//    least traffic is the feature map read once plus the weights and the
 //    output (about 88 MB at 25 x 56 x 76 x 256 bf16, K = 50). The TPU
-//    kernel ran the two contractions as dense MXU matmuls over all of
-//    H and W; here one block owns one ROI, stages its 2n weight rows in
-//    shared memory, finds each row's non-zero range once, and its
-//    threads run across channels, so neighbouring threads load
-//    neighbouring channels of the NHWC map (coalesced) and loop only
-//    over the non-zero taps. For bf16 input the row contraction is
-//    rounded to bf16 before the column contraction, where the Pallas
-//    kernel rounds (pallas_roi_align.py:138).
+//    kernel ran the two contractions as dense MXU matmuls over all of H
+//    and W. The gather that replaced it first gave each of a block's 256
+//    threads one channel of one ROI and walked every bin in series, each
+//    tap a 2-byte load, over full weight rows staged in shared memory
+//    (11-13x the byte bound). It is now the one-level case of
+//    roi_common.cuh:forward_roi with K1's rows (RowWeights): one block
+//    per ROI builds each of its 2n rows' list of non-zero taps, scanning
+//    the K1 row once, and its warps share out the bins, 8 channels a lane
+//    in 16-byte vectors, each bin's tap loads issued before its
+//    multiply-adds. The sum order is the old gather's, so the output is
+//    the same bit for bit. A ROI with a row of more taps than a list
+//    holds (a sampling ratio above 4) is gathered from its K1 rows.
 //
 // K3 roi_align_bwd_kernel replaces the Pallas kernel `_bwd_kernel`
 //    (pallas_roi_align.py:152, called from the custom VJP `_bwd_rule`
@@ -65,7 +70,10 @@
 namespace {
 
 using livecell::backward_tile;
+using livecell::forward_roi;
+using livecell::FwdShared;
 using livecell::from_f32;
+using livecell::kFwdThreads;
 using livecell::kMaxBins;
 using livecell::kSlice;
 using livecell::kSpanThreads;
@@ -73,13 +81,11 @@ using livecell::kTileMinBlocks;
 using livecell::kTileThreads;
 using livecell::kTileX;
 using livecell::kTileY;
-using livecell::pool_roi;
 using livecell::pooled_weight;
 using livecell::RowWeights;
 using livecell::TileShared;
 using livecell::to_f32;
 
-constexpr int kFwdThreads = 256;
 constexpr int kWeightThreads = 256;
 
 template <typename T>
@@ -103,47 +109,25 @@ roi_weights_kernel(const float* __restrict__ boxes, T* __restrict__ wy,
       from_f32<T>(pooled_weight(lo, hi, scale, n, size, ratio, p, g));
 }
 
-// Dynamic shared memory: the ROI's n Wy rows (n*h floats), its n Wx
-// rows (n*w floats), then the first and last non-zero index of each of
-// the 2n rows.
+// One block per ROI (b * k + ki); the shared memory is the ROI's tap
+// lists, roi_common.cuh:FwdShared, static.
 template <typename T>
 __global__ void __launch_bounds__(kFwdThreads)
 roi_align_fwd_kernel(const T* __restrict__ feat, const T* __restrict__ wy,
                      const T* __restrict__ wx, T* __restrict__ out, int k,
                      int n, int h, int w, int c) {
-  extern __shared__ float smem[];
-  float* sy = smem;                                // [n, h]
-  float* sx = sy + n * h;                          // [n, w]
-  int* first = reinterpret_cast<int*>(sx + n * w);  // [2n]
-  int* last = first + 2 * n;                        // [2n]
-
-  const int roi = blockIdx.x;  // b * k + ki
-  const int b = roi / k;
-  const T* wy_roi = wy + (size_t)roi * n * h;
-  const T* wx_roi = wx + (size_t)roi * n * w;
-  for (int i = threadIdx.x; i < n * h; i += blockDim.x)
-    sy[i] = to_f32(wy_roi[i]);
-  for (int i = threadIdx.x; i < n * w; i += blockDim.x)
-    sx[i] = to_f32(wx_roi[i]);
-  __syncthreads();
-
-  pool_roi<T>(sy, sx, first, last, feat + (size_t)b * h * w * c,
-              out + (size_t)roi * n * n * c, n, h, w, c);
+  __shared__ FwdShared sm;
+  const int roi = blockIdx.x;
+  const RowWeights<T> wt{wy, wx, n, h, w};
+  forward_roi<T>(wt, roi, feat + (size_t)(roi / k) * h * w * c,
+                 out + (size_t)roi * n * n * c, c, sm);
 }
 
 template <typename T>
 cudaError_t launch_fwd(const void* feat, const void* wy, const void* wx,
                        void* out, int b, int k, int n, int h, int w, int c,
                        cudaStream_t stream) {
-  const size_t smem =
-      (size_t)n * (h + w) * sizeof(float) + 4 * (size_t)n * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        roi_align_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  roi_align_fwd_kernel<T><<<b * k, kFwdThreads, smem, stream>>>(
+  roi_align_fwd_kernel<T><<<b * k, kFwdThreads, 0, stream>>>(
       static_cast<const T*>(feat), static_cast<const T*>(wy),
       static_cast<const T*>(wx), static_cast<T*>(out), k, n, h, w, c);
   return cudaGetLastError();
@@ -253,11 +237,14 @@ int livecell_roi_weights(const void* boxes, void* wy, void* wx,
 }
 
 // feat [b, h, w, c], wy [b, k, n, h], wx [b, k, n, w] -> out
-// [b, k, n, n, c], all bf16 if `bf16`, else f32.
+// [b, k, n, n, c], all bf16 if `bf16`, else f32. c a multiple of 8, feat
+// and out 16-byte aligned.
 int livecell_roi_align_fwd(const void* feat, const void* wy, const void* wx,
                            void* out, int b, int k, int n, int h, int w,
                            int c, int bf16, void* stream) {
   if (b * k == 0 || c == 0) return 0;
+  if (n > kMaxBins || c % livecell::kVec != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
       bf16 ? launch_fwd<__nv_bfloat16>(feat, wy, wx, out, b, k, n, h, w, c, st)
@@ -294,6 +281,19 @@ int livecell_roi_align_bwd(const void* g, const void* wy, const void* wx,
                                        w, c, st)
            : launch_bwd<float>(g, wy, wx, spans, dfeat, b, k, n, h, w, c, st);
   return (int)e;
+}
+
+// Resident blocks of the forward kernel on one SM, or minus the CUDA
+// error.
+int livecell_roi_align_fwd_blocks_per_sm(int bf16) {
+  int blocks = 0;
+  const cudaError_t e =
+      bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &blocks, roi_align_fwd_kernel<__nv_bfloat16>, kFwdThreads,
+                 0)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &blocks, roi_align_fwd_kernel<float>, kFwdThreads, 0);
+  return e == cudaSuccess ? blocks : -(int)e;
 }
 
 // Resident blocks of the backward kernel on one SM, or minus the CUDA

@@ -1,7 +1,8 @@
 // Shared device code of the RoIAlign kernels (roi_align.cu: K1-K3,
 // ms_roi_align.cu: K5-K6): conversions between the feature dtype and
 // f32, the pooled bilinear weight of one bin and one feature pixel, the
-// forward gather of one ROI (K2, K5), and the tiled backward (K3, K6).
+// tiled backward (K3, K6) and the forward gather over compact tap lists
+// (K2, K5; its note is at its section below).
 //
 // The tiled backward replaces the Pallas kernel `_bwd_kernel`
 // (livecell_tpu/ops/pallas_roi_align.py:152), which accumulated dF over
@@ -66,26 +67,39 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
-// The pooled weight of output bin p (of n) on feature pixel g along one
-// axis of a box [lo, hi] (image coordinates): torchvision RoIAlign,
-// aligned=False, `ratio` samples per bin at offsets (s + 0.5) / ratio,
-// samples outside [-1, size] weigh 0, the side floored at 1 feature
-// pixel, the mean of the samples' two-tap weights. The rounded
+// The side of one bin of a box [lo, hi] (image coordinates) on an axis
+// at `scale`, floored at 1 feature pixel before the division, and the
+// coordinate of its sample s (of `ratio`) in bin p: torchvision RoIAlign,
+// aligned=False, samples at offsets (s + 0.5) / ratio. The rounded
 // intrinsics (__fmul_rn, ...) stop the compiler from fusing a*b+c into
 // one FMA, so every step rounds where the plain PyTorch version's
 // separate tensor ops round and the f32 weight agrees bit for bit.
+__device__ __forceinline__ float bin_side(float lo, float hi, float scale,
+                                          int n) {
+  const float start = __fmul_rn(lo, scale);
+  return __fdiv_rn(fmaxf(__fsub_rn(__fmul_rn(hi, scale), start), 1.0f),
+                   (float)n);
+}
+
+__device__ __forceinline__ float sample_coord(float start, float bin, int p,
+                                              int s, int ratio) {
+  // (s + 0.5) / ratio in double, rounded once: the plain version's
+  // Python scalar.
+  const float off = (float)((s + 0.5) / ratio);
+  return __fadd_rn(start, __fmul_rn(__fadd_rn((float)p, off), bin));
+}
+
+// The pooled weight of output bin p (of n) on feature pixel g along one
+// axis of a box [lo, hi]: samples outside [-1, size] weigh 0, the mean
+// of the samples' two-tap weights.
 __device__ __forceinline__ float pooled_weight(float lo, float hi, float scale,
                                                int n, int size, int ratio,
                                                int p, int g) {
   const float start = __fmul_rn(lo, scale);
-  const float bin = __fdiv_rn(
-      fmaxf(__fsub_rn(__fmul_rn(hi, scale), start), 1.0f), (float)n);
+  const float bin = bin_side(lo, hi, scale, n);
   float acc = 0.0f;
   for (int s = 0; s < ratio; ++s) {
-    // (s + 0.5) / ratio in double, rounded once: the plain version's
-    // Python scalar.
-    const float off = (float)((s + 0.5) / ratio);
-    const float c = __fadd_rn(start, __fmul_rn(__fadd_rn((float)p, off), bin));
+    const float c = sample_coord(start, bin, p, s, ratio);
     if (c >= -1.0f && c <= (float)size) {
       const float cc = fminf(fmaxf(c, 0.0f), (float)(size - 1));
       acc = __fadd_rn(
@@ -95,72 +109,29 @@ __device__ __forceinline__ float pooled_weight(float lo, float hi, float scale,
   return __fdiv_rn(acc, (float)ratio);
 }
 
-// The pooled contraction of one ROI, run by every thread of its block:
-// out[p, q, c] = sum_y sum_x Wy[p, y] Wx[q, x] F[y, x, c] with f32
-// accumulation, from the ROI's n Wy rows `sy` [n, h] and n Wx rows `sx`
-// [n, w] staged in shared memory (as f32 values of T). `first`/`last`
-// [2n] are shared scratch for each row's non-zero index range; the
-// threads run across channels, so neighbouring threads load
-// neighbouring channels of the NHWC map `fb` [h, w, c] (coalesced) and
-// loop only over the non-zero taps. For T = bf16 the row contraction is
-// rounded to bf16 before the column contraction, where the Pallas kernel
-// rounds (livecell_tpu/ops/pallas_roi_align.py:138).
-template <typename T>
-__device__ void pool_roi(const float* sy, const float* sx, int* first,
-                         int* last, const T* __restrict__ fb,
-                         T* __restrict__ ob, int n, int h, int w, int c) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  for (int r = warp; r < 2 * n; r += n_warps) {
-    const bool is_y = r < n;
-    const int len = is_y ? h : w;
-    const float* row = is_y ? sy + r * h : sx + (r - n) * w;
-    int lo = len, hi = -1;
-    for (int i = lane; i < len; i += 32) {
-      if (row[i] != 0.0f) {
-        lo = min(lo, i);
-        hi = max(hi, i);
-      }
-    }
-    lo = __reduce_min_sync(0xffffffffu, lo);
-    hi = __reduce_max_sync(0xffffffffu, hi);
-    if (lane == 0) {
-      first[r] = lo;
-      last[r] = hi;
-    }
-  }
-  __syncthreads();
-
-  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-    for (int p = 0; p < n; ++p) {
-      const float* ry = sy + p * h;
-      const int y0 = first[p], y1 = last[p];
-      for (int q = 0; q < n; ++q) {
-        const float* rx = sx + q * w;
-        float acc = 0.0f;
-        for (int x = first[n + q]; x <= last[n + q]; ++x) {
-          const float wxv = rx[x];
-          if (wxv == 0.0f) continue;  // uniform across the block
-          float t = 0.0f;
-          for (int y = y0; y <= y1; ++y) {
-            const float wyv = ry[y];
-            if (wyv == 0.0f) continue;
-            t = fmaf(wyv, to_f32(fb[((size_t)y * w + x) * c + ch]), t);
-          }
-          acc = fmaf(wxv, round_to<T>(t), acc);
-        }
-        ob[((size_t)p * n + q) * c + ch] = from_f32<T>(acc);
-      }
-    }
-  }
+// The pixels of one axis where bin p's pooled weight can be non-zero: a
+// sample's taps lie within one pixel of it (clamped to the map), and the
+// samples of a bin ascend with s, so its taps lie between its first and
+// last sample (computed as pooled_weight computes them) widened by one
+// pixel; the window widens them by two and clamps to [0, size - 1]. A
+// NaN end point gives the whole axis. Never empty.
+__device__ __forceinline__ int2 bin_window(float lo, float hi, float scale,
+                                           int n, int size, int ratio,
+                                           int p) {
+  const float start = __fmul_rn(lo, scale);
+  const float bin = bin_side(lo, hi, scale, n);
+  const float f0 = floorf(sample_coord(start, bin, p, 0, ratio)) - 2.0f;
+  const float f1 =
+      ceilf(sample_coord(start, bin, p, ratio - 1, ratio)) + 2.0f;
+  return make_int2(f0 > 0.0f ? (int)fminf(f0, (float)(size - 1)) : 0,
+                   f1 < (float)(size - 1) ? (int)fmaxf(f1, 0.0f) : size - 1);
 }
 
 // ---------------------------------------------------------------------------
 // The tiled backward (K3, K6).
 // ---------------------------------------------------------------------------
 
-constexpr int kMaxBins = 16;       // largest out_size the backward takes
+constexpr int kMaxBins = 16;       // largest out_size the kernels take
 constexpr int kTileY = 8;          // feature rows of a tile
 constexpr int kTileX = 4;          // feature columns of a tile: one a warp
 constexpr int kVec = 8;            // channels of a thread
@@ -187,8 +158,10 @@ struct __align__(16) TileShared {
   int warp_hits[kTileThreads / 32];
 };
 
-// K3's weights: rows of K1's tensors Wy [K, n, H], Wx [K, n, W] of one
-// image.
+// K2's and K3's weights: rows of K1's tensors Wy [K, n, H], Wx [K, n, W]
+// (of one image, or of all images with a global ROI index). Row r of a
+// ROI is Wy[p = r] for r < n, else Wx[q = r - n]; any of its pixels may
+// hold a tap.
 template <typename T>
 struct RowWeights {
   const T* wy;
@@ -200,10 +173,17 @@ struct RowWeights {
   __device__ __forceinline__ float x(int roi, int q, int xx) const {
     return to_f32(wx[((size_t)roi * n + q) * w + xx]);
   }
+  __device__ __forceinline__ float row(int roi, int r, int g) const {
+    return r < n ? y(roi, r, g) : x(roi, r - n, g);
+  }
+  __device__ __forceinline__ int2 window(int, int r) const {
+    return make_int2(0, (r < n ? h : w) - 1);
+  }
 };
 
-// K6's weights: recomputed from the boxes [K, 4] of one image on one
-// level, rounded to T as K1 rounds them.
+// K5's and K6's weights: recomputed from the boxes [K, 4] on one level,
+// rounded to T as K1 rounds them; row r as RowWeights', its taps inside
+// bin_window.
 template <typename T>
 struct BoxWeights {
   const float* boxes;
@@ -217,13 +197,46 @@ struct BoxWeights {
     return round_to<T>(pooled_weight(boxes[roi * 4], boxes[roi * 4 + 2],
                                      scale, n, w, ratio, q, xx));
   }
+  __device__ __forceinline__ float row(int roi, int r, int g) const {
+    return r < n ? y(roi, r, g) : x(roi, r - n, g);
+  }
+  __device__ __forceinline__ int2 window(int roi, int r) const {
+    const bool is_y = r < n;
+    return bin_window(boxes[roi * 4 + (is_y ? 1 : 0)],
+                      boxes[roi * 4 + (is_y ? 3 : 2)], scale, n,
+                      is_y ? h : w, ratio, is_y ? r : r - n);
+  }
 };
 
-// `hi`: the second f32 vector lies inside the map's channels.
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, bool,
-                                         float (&v)[kVec]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+// A lane's kVec channels of one pixel as loaded: for bf16 one 16-byte
+// vector, for f32 two, the second kHalf channels further (zeros when
+// `hi`, the second vector lies inside the map's channels, is false).
+template <typename T>
+struct Raw;
+template <>
+struct Raw<__nv_bfloat16> {
+  uint4 v;
+};
+template <>
+struct Raw<float> {
+  float4 a, b;
+};
+
+__device__ __forceinline__ void load_raw(const __nv_bfloat16* p, bool,
+                                         Raw<__nv_bfloat16>& r) {
+  r.v = *reinterpret_cast<const uint4*>(p);
+}
+
+__device__ __forceinline__ void load_raw(const float* p, bool hi,
+                                         Raw<float>& r) {
+  r.a = *reinterpret_cast<const float4*>(p);
+  r.b = hi ? *reinterpret_cast<const float4*>(p + kHalf)
+           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+__device__ __forceinline__ void unpack(const Raw<__nv_bfloat16>& r,
+                                       float (&v)[kVec]) {
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&r.v);
 #pragma unroll
   for (int i = 0; i < kVec / 2; ++i) {
     const float2 f = __bfloat1622float2(h2[i]);
@@ -232,13 +245,17 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, bool,
   }
 }
 
-__device__ __forceinline__ void load_vec(const float* p, bool hi,
+__device__ __forceinline__ void unpack(const Raw<float>& r, float (&v)[kVec]) {
+  v[0] = r.a.x; v[1] = r.a.y; v[2] = r.a.z; v[3] = r.a.w;
+  v[4] = r.b.x; v[5] = r.b.y; v[6] = r.b.z; v[7] = r.b.w;
+}
+
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* p, bool hi,
                                          float (&v)[kVec]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = hi ? *reinterpret_cast<const float4*>(p + kHalf)
-                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  Raw<T> r;
+  load_raw(p, hi, r);
+  unpack(r, v);
 }
 
 __device__ __forceinline__ void store_vec(__nv_bfloat16* p, bool,
@@ -395,6 +412,259 @@ __device__ void backward_tile(const Weights& wt, const int4* __restrict__ spans,
   for (int i = 0; i < kTileY; ++i)
     if (y0 + i <= y1)
       store_vec(df + ((size_t)(y0 + i) * w + x) * c + ch, hi, acc[i]);
+}
+
+// ---------------------------------------------------------------------------
+// The forward gather (K2, K5).
+// ---------------------------------------------------------------------------
+//
+// It replaces the Pallas kernel `_fwd_kernel`
+// (livecell_tpu/ops/pallas_roi_align.py:126), which ran out[p, q, c] =
+// sum_y sum_x Wy[p, y] Wx[q, x] F[y, x, c] as two dense MXU matmuls over
+// all of H and W, the row sum rounded to T (:138). On this card it is
+// bound by bytes: a weight row has at most 2 ratio non-zero taps, so a
+// bin reads at most (2 ratio)^2 = 16 feature vectors, the multiply-adds
+// are few and the tensor cores have nothing dense to chew on; the least
+// traffic is the output plus the feature pixels the taps touch. The
+// gather it replaces gave a block one ROI and each of its 256 threads
+// one channel: every thread walked all n^2 bins in series (a chain of
+// 784 loads at 7x7, 3,136 at 14x14), each tap a 2-byte load with its own
+// index arithmetic and zero tests, after the block had staged or computed
+// full weight rows (n (H + W) values; 26 KB of shared memory at P2 for
+// n = 14, sized by the largest level for every block) and scanned them
+// for each row's non-zero range: 11-13x its byte bound for K2, 11-27x
+// for K5. Here:
+//   - a block of 4 warps owns one ROI; they first build, in shared
+//     memory, a tap list for each of the ROI's 2n weight rows: the
+//     (pixel, weight) pairs whose weight is non-zero, in ascending pixel
+//     order (warp ballots), at most kMaxTaps = 2 kMaxRatio of them. K2
+//     scans K1's rows; K5 evaluates pooled_weight only over bin_window,
+//     never over a whole row. 2.4 KB of static shared memory on any map;
+//   - the warps then take the n^2 bins (and 256-channel slices) in turn;
+//     a lane owns 8 channels as 16-byte vectors (f32: two 4-channel
+//     vectors half a slice apart), so one warp's loads of a pixel are 512
+//     contiguous bytes in bf16 and the bins run in parallel;
+//   - within a bin, the loads of two x taps' first four y taps (8
+//     vectors; a sampling ratio of 2 has no more) are issued before
+//     their multiply-adds, with a fixed, predicated trip count: 128
+//     registers in bf16, 4 blocks an SM;
+//   - a row with more non-zero taps than a list holds (K2 given weights
+//     of a sampling ratio above kMaxRatio; K5's wrapper refuses such a
+//     ratio) sends its whole ROI through the same gather over the weight
+//     rows themselves, each from its first to its last non-zero pixel,
+//     zeros skipped: slower, and the same result. No list is cut short.
+// The sum order is the row-at-a-time gather's, so the output is the same
+// bit for bit: for each output (p, q, c), x over the non-zero taps of
+// Wx[q] in ascending order; t the fmaf chain from 0 over the non-zero
+// taps of Wy[p], y ascending; acc = fmaf(wx, round_to<T>(t), acc) from 0;
+// out = from_f32<T>(acc). A tap with a zero weight is skipped, never
+// multiplied, so a non-finite feature value under it stays out of the
+// sum. (4 warps and 2 x taps a group beat 2, 8 and 16 warps, 1 and 4 x
+// taps a group and launch bounds of 2 to 4 blocks at the serving and
+// training shapes on an H100; PERF.md section 6.)
+
+constexpr int kMaxRatio = 4;             // largest sampling ratio of a list
+constexpr int kMaxTaps = 2 * kMaxRatio;  // entries of a tap list
+constexpr int kChunk = 4;                // y taps whose loads go together
+constexpr int kFwdWarps = 4;             // warps of a forward block
+constexpr int kFwdThreads = 32 * kFwdWarps;
+
+// The tap lists of one ROI: row r < n is Wy[p = r], else Wx[q = r - n];
+// first/last: the row's first and last non-zero pixel (0, -1 if none).
+struct FwdShared {
+  int idx[2 * kMaxBins][kMaxTaps];    // pixels, ascending
+  float w[2 * kMaxBins][kMaxTaps];    // their non-zero weights, f32 of T
+  int count[2 * kMaxBins];            // entries of each row
+  int first[2 * kMaxBins];
+  int last[2 * kMaxBins];
+};
+
+// Taps from the lists; the loads of kGroup x taps' y taps are issued
+// together.
+struct ListTaps {
+  static constexpr int kGroup = 2;
+  const FwdShared& sm;
+  __device__ __forceinline__ int count(int r) const { return sm.count[r]; }
+  __device__ __forceinline__ int index(int r, int i) const {
+    return sm.idx[r][i];
+  }
+  __device__ __forceinline__ float weight(int r, int i) const {
+    return sm.w[r][i];
+  }
+};
+
+// Taps from the weight rows themselves: every pixel of a row from its
+// first to its last non-zero one, zeros included (the gather skips
+// them), one x tap at a time.
+template <typename Weights>
+struct RowTaps {
+  static constexpr int kGroup = 1;
+  const FwdShared& sm;
+  Weights wt;
+  int roi;
+  __device__ __forceinline__ int count(int r) const {
+    return sm.last[r] - sm.first[r] + 1;
+  }
+  __device__ __forceinline__ int index(int r, int i) const {
+    return sm.first[r] + i;
+  }
+  __device__ __forceinline__ float weight(int r, int i) const {
+    return wt.row(roi, r, sm.first[r] + i);
+  }
+};
+
+// Builds the ROI's tap lists, the warps strided over its 2n rows, each
+// scanning its rows' windows 32 pixels at a time. Run by the whole block;
+// returns, in every thread, whether some row has more than kMaxTaps
+// non-zero taps (its list then holds only the first kMaxTaps).
+template <typename Weights>
+__device__ __forceinline__ bool build_taps(const Weights& wt, int roi,
+                                           FwdShared& sm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  bool over = false;
+  for (int r = warp; r < 2 * wt.n; r += kFwdWarps) {
+    const int2 win = wt.window(roi, r);
+    int count = 0, first = 0, last = -1;
+    for (int g0 = win.x; g0 <= win.y; g0 += 32) {  // uniform in the warp
+      const int g = g0 + lane;
+      const float v = g <= win.y ? wt.row(roi, r, g) : 0.0f;
+      const unsigned nz = __ballot_sync(0xffffffffu, v != 0.0f);
+      const int at = count + __popc(nz & ((1u << lane) - 1u));
+      if (v != 0.0f && at < kMaxTaps) {
+        sm.idx[r][at] = g;
+        sm.w[r][at] = v;
+      }
+      if (nz) {
+        if (count == 0) first = g0 + __ffs(nz) - 1;
+        last = g0 + 31 - __clz(nz);
+      }
+      count += __popc(nz);
+    }
+    if (lane == 0) {
+      sm.count[r] = count;
+      sm.first[r] = first;
+      sm.last[r] = last;
+    }
+    over |= count > kMaxTaps;
+  }
+  return __syncthreads_or(over);
+}
+
+// Entries i0.. of row r's taps, N of them; past the row's count, weight
+// 0 (skipped).
+template <int N, typename Taps>
+__device__ __forceinline__ void tap_chunk(const Taps& taps, int r, int i0,
+                                          int (&idx)[N], float (&wt)[N]) {
+  const int count = taps.count(r);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const bool in = i0 + i < count;
+    idx[i] = in ? taps.index(r, i0 + i) : 0;
+    wt[i] = in ? taps.weight(r, i0 + i) : 0.0f;
+  }
+}
+
+// t = fmaf(wy[j], F[y_j], t) over the loaded vectors with non-zero
+// weights, j in order.
+template <typename T>
+__device__ __forceinline__ void fma_chunk(const Raw<T> (&raw)[kChunk],
+                                          const float (&wy)[kChunk],
+                                          float (&t)[kVec]) {
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j) {
+    if (wy[j] == 0.0f) continue;
+    float f[kVec];
+    unpack(raw[j], f);
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) t[v] = fmaf(wy[j], f[v], t[v]);
+  }
+}
+
+// One bin (p, q) for a lane's kVec channels, `fc` pointing at F[0, 0,
+// ch] of the map [h, w, c]. The loads of a group of x taps' first kChunk
+// y taps are issued together; further y taps (a sampling ratio above 2)
+// are loaded kChunk at a time for each x tap. Every row's taps ascend, so
+// the sums run in the order the note above states.
+template <typename T, typename Taps>
+__device__ __forceinline__ void gather_bin(const Taps& taps,
+                                           const T* __restrict__ fc, int p,
+                                           int q, int n, int w, int c,
+                                           bool hi, float (&acc)[kVec]) {
+  constexpr int kGroup = Taps::kGroup;
+  const int ny = taps.count(p), nx = taps.count(n + q);
+  int ys[kChunk];
+  float wys[kChunk];
+  tap_chunk(taps, p, 0, ys, wys);
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) acc[v] = 0.0f;
+  for (int i0 = 0; i0 < nx; i0 += kGroup) {
+    int xs[kGroup];
+    float wxs[kGroup];
+    tap_chunk(taps, n + q, i0, xs, wxs);
+    Raw<T> raw[kGroup][kChunk];
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i)
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j)
+        if (wxs[i] != 0.0f && wys[j] != 0.0f)
+          load_raw(fc + ((size_t)ys[j] * w + xs[i]) * c, hi, raw[i][j]);
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      if (wxs[i] == 0.0f) continue;
+      float t[kVec];
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) t[v] = 0.0f;
+      fma_chunk<T>(raw[i], wys, t);
+      for (int j0 = kChunk; j0 < ny; j0 += kChunk) {
+        int ym[kChunk];
+        float wym[kChunk];
+        tap_chunk(taps, p, j0, ym, wym);
+        Raw<T> more[kChunk];
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j)
+          if (wym[j] != 0.0f)
+            load_raw(fc + ((size_t)ym[j] * w + xs[i]) * c, hi, more[j]);
+        fma_chunk<T>(more, wym, t);
+      }
+#pragma unroll
+      for (int v = 0; v < kVec; ++v)
+        acc[v] = fmaf(wxs[i], round_to<T>(t[v]), acc[v]);
+    }
+  }
+}
+
+// The ROI's output ob [n, n, c] from its map fb [h, w, c], the warps
+// strided over (bin, 256-channel slice) pairs, bins in order.
+template <typename T, typename Taps>
+__device__ __forceinline__ void gather_roi(const Taps& taps,
+                                           const T* __restrict__ fb,
+                                           T* __restrict__ ob, int n, int w,
+                                           int c) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slices = (c + kSlice - 1) / kSlice;
+  for (int e = warp; e < n * n * slices; e += kFwdWarps) {
+    const int bin = e / slices;
+    const int ch = e % slices * kSlice + lane * lane_channels<T>();
+    if (ch >= c) continue;
+    const bool hi = ch + kHalf < c;
+    float acc[kVec];
+    gather_bin<T>(taps, fb + ch, bin / n, bin % n, n, w, c, hi, acc);
+    store_vec(ob + (size_t)bin * c + ch, hi, acc);
+  }
+}
+
+// The forward of one ROI: out ob [n, n, c] from the map fb [h, w, c] of
+// its image (and level) and the weights `wt` (RowWeights, BoxWeights).
+// Run by all kFwdThreads threads of the block.
+template <typename T, typename Weights>
+__device__ __forceinline__ void forward_roi(const Weights& wt, int roi,
+                                            const T* __restrict__ fb,
+                                            T* __restrict__ ob, int c,
+                                            FwdShared& sm) {
+  if (build_taps(wt, roi, sm))
+    gather_roi<T>(RowTaps<Weights>{sm, wt, roi}, fb, ob, wt.n, wt.w, c);
+  else
+    gather_roi<T>(ListTaps{sm}, fb, ob, wt.n, wt.w, c);
 }
 
 }  // namespace livecell

@@ -6,7 +6,9 @@ assign_levels, ms_roi_align_pallas).
      each ROI, 0..3 for P2..P5, int32: a plain tensor op, computed once
      per call and handed to the kernels and their plain versions alike.
   K5 `ms_roi_align_fwd` four maps [B,H_l,W_l,C], boxes, levels ->
-     [B,K,n,n,C]: each ROI pooled from its own level only.
+     [B,K,n,n,C]: each ROI pooled from its own level only, K2's
+     tap-list gather with the weights computed from the box over each
+     bin's window (`ms_roi_bin_windows_plain`).
   K6 `ms_roi_align_bwd` g [B,K,n,n,C], boxes, levels -> the four maps'
      gradients, weights recomputed inside the kernel: the pre-pass
      `ms_roi_spans` (each ROI's non-zero span on its own level, empty on
@@ -38,8 +40,8 @@ import torch
 from livecell_tpu_torch.config import ROUTES
 from livecell_tpu_torch.ops import _build
 from livecell_tpu_torch.ops.cuda_roi_align import (
-    _DTYPES, _check_tiled, _require_aligned, _require_cuda, _stream,
-    roi_align_fwd_plain, roi_spans_plain, roi_weights_plain)
+    _DTYPES, MAX_RATIO, _check_tiled, _require_aligned, _require_cuda,
+    _stream, roi_align_fwd_plain, roi_spans_plain, roi_weights_plain)
 
 LEVELS = 4
 # The plain versions pool ROIs in chunks whose f32 intermediates
@@ -60,8 +62,10 @@ def _lib() -> ctypes.CDLL:
     lib.livecell_ms_roi_align_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i,
                                               i, i, i, p]
     lib.livecell_ms_roi_align_bwd.restype = i
-    lib.livecell_ms_roi_align_bwd_blocks_per_sm.argtypes = [i]
-    lib.livecell_ms_roi_align_bwd_blocks_per_sm.restype = i
+    for fn in (lib.livecell_ms_roi_align_fwd_blocks_per_sm,
+               lib.livecell_ms_roi_align_bwd_blocks_per_sm):
+        fn.argtypes = [i]
+        fn.restype = i
     lib.livecell_ms_roi_align_error_string.argtypes = [i]
     lib.livecell_ms_roi_align_error_string.restype = ctypes.c_char_p
     return lib
@@ -150,7 +154,6 @@ def ms_roi_align_fwd(feats: Sequence[torch.Tensor], boxes: torch.Tensor,
     if boxes.device.type == "cpu":
         return ms_roi_align_fwd_plain(feats, boxes, levels, out_size,
                                       sampling_ratio)
-    dev = _require_cuda(*feats, boxes, levels)
     b, k, c = _check_inputs(feats, boxes, levels)
     dtype = feats[0].dtype
     if dtype not in _DTYPES or boxes.dtype != torch.float32 \
@@ -158,13 +161,16 @@ def ms_roi_align_fwd(feats: Sequence[torch.Tensor], boxes: torch.Tensor,
         raise ValueError(f"ms_roi_align_fwd kernel takes bf16 or f32 maps, "
                          f"f32 boxes and int32 levels, got {dtype}, "
                          f"{boxes.dtype}, {levels.dtype}")
+    _check_tiled("ms_roi_align_fwd", out_size, c)
+    # A weight row has at most 2 * sampling_ratio non-zero taps, and the
+    # kernel's lists hold 2 * MAX_RATIO.
+    if not 1 <= sampling_ratio <= MAX_RATIO:
+        raise ValueError(f"ms_roi_align_fwd kernel takes sampling_ratio 1 to "
+                         f"{MAX_RATIO}, got {sampling_ratio}")
+    dev = _require_cuda(*feats, boxes, levels)
+    _require_aligned(*feats)
     hs = [f.shape[1] for f in feats]
     ws = [f.shape[2] for f in feats]
-    # The kernel stages a ROI's 2n weight rows in shared memory.
-    if out_size * max(h + w for h, w in zip(hs, ws)) * 4 + 16 * out_size \
-            > 200 * 1024:
-        raise ValueError(f"level maps {list(zip(hs, ws))} too large for the "
-                         f"ms_roi_align_fwd kernel's shared-memory staging")
     out = torch.empty((b, k, out_size, out_size, c), dtype=dtype, device=dev)
     code = _lib().livecell_ms_roi_align_fwd(
         (ctypes.c_void_p * LEVELS)(*(f.data_ptr() for f in feats)),
@@ -177,6 +183,58 @@ def ms_roi_align_fwd(feats: Sequence[torch.Tensor], boxes: torch.Tensor,
 
 
 ms_roi_align_fwd.launches = 0
+
+
+def ms_roi_align_fwd_blocks_per_sm(dtype: torch.dtype) -> int:
+    """Blocks of K5 resident on one SM of the current card
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    blocks = _lib().livecell_ms_roi_align_fwd_blocks_per_sm(
+        int(dtype == torch.bfloat16))
+    if blocks < 0:
+        _check(-blocks, "ms_roi_align_fwd occupancy")
+    return blocks
+
+
+def ms_roi_bin_windows_plain(boxes: torch.Tensor, levels: torch.Tensor,
+                             feat_hw: Sequence[Tuple[int, int]],
+                             out_size: int = 7, sampling_ratio: int = 2
+                             ) -> torch.Tensor:
+    """Plain version of K5's per-bin windows (roi_common.cuh:bin_window),
+    in f32 as the kernel computes them: for each ROI, on its own level,
+    and each of its 2n weight rows (the n bins along y, then along x),
+    the inclusive pixel range [g0, g1] that K5 scans for non-zero taps:
+    the bin's first and last sample widened by two pixels and clamped to
+    the map, the whole axis for a NaN end point. [B, K, 2n, 2] int32."""
+    b = boxes.float()
+    lv = levels.long()
+    dev = boxes.device
+    scale = torch.tensor([0.25 / 2 ** i for i in range(LEVELS)],
+                         dtype=torch.float32, device=dev)[lv]    # [B, K]
+    hw = torch.tensor(feat_hw, dtype=torch.float32, device=dev)[lv]
+    p = torch.arange(out_size, dtype=torch.float32, device=dev)
+
+    def axis(lo, hi, size):
+        start = lo * scale
+        # Tensor divisors: the kernel's true division (see
+        # roi_weights_plain).
+        side = (hi * scale - start).clamp(min=1.0)
+        bin_sz = side / torch.full_like(side, out_size)
+
+        def sample(s):
+            return start[..., None] + (p + (s + 0.5) / sampling_ratio) \
+                * bin_sz[..., None]
+
+        last = size[..., None] - 1.0
+        f0 = torch.floor(sample(0)) - 2.0
+        f1 = torch.ceil(sample(sampling_ratio - 1)) + 2.0
+        g0 = torch.where(f0 > 0.0, torch.minimum(f0, last), 0.0)
+        g1 = torch.where(f1 < last, torch.maximum(f1, torch.zeros_like(f1)),
+                         last)
+        return torch.stack([g0, g1], -1)
+
+    return torch.cat([axis(b[..., 1], b[..., 3], hw[..., 0]),
+                      axis(b[..., 0], b[..., 2], hw[..., 1])],
+                     -2).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ counter (`<wrapper>.launches`, raised by one per kernel launch):
   K1 `roi_weights`   boxes [B,K,4] f32 -> Wy [B,K,n,H], Wx [B,K,n,W]:
      the pooled bilinear weights (replaces `_weights_kernel`).
   K2 `roi_align_fwd` features [B,H,W,C], Wy, Wx -> [B,K,n,n,C]
-     (replaces `_fwd_kernel`).
+     (replaces `_fwd_kernel`): one block per ROI lists each weight row's
+     non-zero taps (`roi_taps_plain` is that list's plain version), then
+     its warps gather the bins.
   K3 `roi_align_bwd` g [B,K,n,n,C], Wy, Wx -> dfeatures [B,H,W,C]
      (replaces `_bwd_kernel`): the pre-pass `roi_spans` (each ROI's
      non-zero row and column span) then the tiled gather; one count per
@@ -56,8 +58,10 @@ def _lib() -> ctypes.CDLL:
     lib.livecell_roi_align_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                            i, p]
     lib.livecell_roi_align_bwd.restype = i
-    lib.livecell_roi_align_bwd_blocks_per_sm.argtypes = [i]
-    lib.livecell_roi_align_bwd_blocks_per_sm.restype = i
+    for fn in (lib.livecell_roi_align_fwd_blocks_per_sm,
+               lib.livecell_roi_align_bwd_blocks_per_sm):
+        fn.argtypes = [i]
+        fn.restype = i
     lib.livecell_cuda_error_string.argtypes = [i]
     lib.livecell_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -90,10 +94,14 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-# The tiled backward kernels (K3, K6) load and store a lane's 8 channels
-# as 16-byte vectors, and take at most 16 bins.
+# The RoIAlign gathers (K2, K3, K5, K6) load and store a lane's 8
+# channels as 16-byte vectors, and take at most 16 bins; the forward's
+# tap lists (K2, K5) hold 2 * MAX_RATIO taps a weight row (K2 gathers a
+# ROI with a longer row from the weight rows themselves, K5's wrapper
+# refuses a larger sampling ratio).
 VEC_CHANNELS = 8
 MAX_BINS = 16
+MAX_RATIO = 4
 
 
 def _check_tiled(what: str, n: int, c: int) -> None:
@@ -202,7 +210,6 @@ def roi_align_fwd(features: torch.Tensor, wy: torch.Tensor,
     of the same dtype (bf16 or f32) -> [B, K, n, n, C]."""
     if features.device.type == "cpu":
         return roi_align_fwd_plain(features, wy, wx)
-    dev = _require_cuda(features, wy, wx)
     b, h, w, c = features.shape
     k, n = wy.shape[1], wy.shape[2]
     if features.dtype not in _DTYPES or wy.dtype != features.dtype \
@@ -213,10 +220,9 @@ def roi_align_fwd(features: torch.Tensor, wy: torch.Tensor,
     if tuple(wy.shape) != (b, k, n, h) or tuple(wx.shape) != (b, k, n, w):
         raise ValueError(f"weights {tuple(wy.shape)}, {tuple(wx.shape)} do "
                          f"not fit features {tuple(features.shape)}")
-    # The kernel stages a ROI's 2n weight rows in shared memory.
-    if n * (h + w) * 4 + 16 * n > 200 * 1024:
-        raise ValueError(f"feature map {h}x{w} too large for the "
-                         f"roi_align_fwd kernel's shared-memory staging")
+    _check_tiled("roi_align_fwd", n, c)
+    dev = _require_cuda(features, wy, wx)
+    _require_aligned(features)
     out = torch.empty((b, k, n, n, c), dtype=features.dtype, device=dev)
     code = _lib().livecell_roi_align_fwd(
         features.data_ptr(), wy.data_ptr(), wx.data_ptr(), out.data_ptr(),
@@ -227,6 +233,49 @@ def roi_align_fwd(features: torch.Tensor, wy: torch.Tensor,
 
 
 roi_align_fwd.launches = 0
+
+
+def roi_align_fwd_blocks_per_sm(dtype: torch.dtype) -> int:
+    """Blocks of K2 resident on one SM of the current card
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    blocks = _lib().livecell_roi_align_fwd_blocks_per_sm(
+        int(dtype == torch.bfloat16))
+    if blocks < 0:
+        _check(-blocks, "roi_align_fwd occupancy")
+    return blocks
+
+
+def roi_taps_plain(wy: torch.Tensor, wx: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernels' tap lists (K2, K5): for each
+    ROI's 2n weight rows (Wy [..., n, H] then Wx [..., n, W]), the pixels
+    whose weight is non-zero, in ascending order, and their weights in
+    f32. Returns (index [..., 2n, L] int32, -1 past a row's end; weight
+    [..., 2n, L] f32, 0 there; count [..., 2n] int32), L the longest
+    row's count: nothing is cut short."""
+    def lists(wt):
+        wt = wt.float()
+        nz = wt != 0
+        count = nz.sum(-1)
+        size = wt.shape[-1]
+        pix = torch.arange(size, device=wt.device)
+        # Non-zero pixels first, each group in pixel order.
+        order = torch.where(nz, pix, size + pix).argsort(-1)
+        return order, wt.gather(-1, order), count
+
+    (iy, vy, ny), (ix, vx, nx) = lists(wy), lists(wx)
+    count = torch.cat([ny, nx], -1)
+    width = int(count.max()) if count.numel() else 0
+
+    def cut(t):
+        pad = width - t.shape[-1]
+        return torch.nn.functional.pad(t[..., :width], (0, max(pad, 0)))
+
+    index = torch.cat([cut(iy), cut(ix)], -2)
+    weight = torch.cat([cut(vy), cut(vx)], -2)
+    live = torch.arange(width, device=wy.device) < count[..., None]
+    return (torch.where(live, index, -1).to(torch.int32),
+            torch.where(live, weight, 0.0), count.to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
