@@ -12,13 +12,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
      profiler: K1 (roi_weights) and K2 (roi_align_fwd) at the serving
      shapes (25 tiles, 56x76x256 map, K in {50, 256}, and request (b)'s
      one tile, K = 50; bf16 and f32) and at the training shape (32
-     images, K = 128, bf16); K2 also equal to its plain version bit for
+     images, K = 128, bf16); K1 equal to its plain version bit for bit
+     in both dtypes, there and on edge boxes at sampling ratios 2 and 6,
+     two calls equal; K2 also equal to its plain version bit for
      bit in bf16 (`equal_to_plain`, recorded in f32), two calls equal
      bit for bit, its resident blocks per SM (at least 2), and within
      tolerance on weights of sampling ratio 6 (rows longer than its tap
-     lists); K4
-     (match_anchors, full and max-only) at the fixed mode's 32 images x
-     128 GT and the quirk mode's 1 x 4,096; K3 (roi_align_bwd, bf16 and
+     lists); K4 (match_anchors, full and max-only; max IoU and best
+     anchor equal to the plain version bit for bit, targets within 1e-5
+     relative, two calls equal) at the fixed mode's 32 images x 128 GT,
+     the quirk mode's 1 x 4,096 and 32 x 128 with every slot valid (the
+     most work); K3 (roi_align_bwd, bf16 and
      f32) at 32 x 128 and 1 x 128 ROIs and on one box covering the map,
      its spans pre-pass covering the plain spans, two calls equal bit for
      bit, and its resident blocks per SM (at least 2); K2's and K3's
@@ -93,7 +97,6 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 B, H, W, C = 25, 56, 76, 256     # a frame's tiles, stride-4 map of 224x304
 OUT, RATIO, SCALE = 7, 2, 0.25
-TOL_K1 = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-6}
 
 
 def log(*a):
@@ -119,7 +122,7 @@ def time_ms(fn, warmup=3, runs=21, calls=10) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in evs) / calls
 
 
-def kernel_ms(fn, kernels: tuple, calls=10) -> float:
+def kernel_ms(fn, kernels: tuple, calls=10):
     """Device time per call of `fn` spent in the CUDA kernels whose names
     contain one of `kernels` (all the kernels one wrapper call launches,
     e.g. a pre-pass and the main kernel, each once a call), from
@@ -128,7 +131,10 @@ def kernel_ms(fn, kernels: tuple, calls=10) -> float:
     H100 now and then records only some of the launches, or none, so up
     to five sessions are tried for one that recorded every launch; if
     none did, the last session's mean time per recorded launch of each
-    kernel is summed instead, and the shortfall logged."""
+    kernel is summed instead, and the shortfall logged; if it recorded
+    none of them, None (not measured) is returned and logged: a kernel's
+    launch is shown by its counter and its output, not by the
+    profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -149,8 +155,9 @@ def kernel_ms(fn, kernels: tuple, calls=10) -> float:
             break
     else:
         if not any(counts.values()):
-            raise AssertionError(f"profiler saw none of {kernels} in five "
-                                 f"sessions")
+            log(f"[kernels] profiler recorded none of {kernels} in five "
+                f"sessions: device ms not measured")
+            return None
         log(f"[kernels] profiler recorded {counts} of {calls} calls of "
             f"{kernels}: summing each kernel's mean per recorded launch")
         return sum(sum(ev.self_device_time_total for ev in rows
@@ -214,11 +221,14 @@ def k12_cases(cra, feat: torch.Tensor, boxes: torch.Tensor) -> list:
     k = boxes.shape[1]
     name = f"B={feat.shape[0]} K={k} {str(dtype).split('.')[-1]}"
     esz = feat.element_size()
-    # K1.
+    # K1: equal to its plain version bit for bit, in both dtypes.
     wy, wx = cra.roi_weights(boxes, (H, W), OUT, RATIO, SCALE, dtype)
     py, px = cra.roi_weights_plain(boxes, (H, W), OUT, RATIO, SCALE, dtype)
     err1 = max((wy.float() - py.float()).abs().max().item(),
                (wx.float() - px.float()).abs().max().item())
+    exact1 = torch.equal(wy, py) and torch.equal(wx, px)
+    same1 = all(torch.equal(a, b) for a, b in zip(
+        (wy, wx), cra.roi_weights(boxes, (H, W), OUT, RATIO, SCALE, dtype)))
     # K2, on the kernel's own weights.
     out = cra.roi_align_fwd(feat, wy, wx)
     same = torch.equal(out, cra.roi_align_fwd(feat, wy, wx))
@@ -237,11 +247,11 @@ def k12_cases(cra, feat: torch.Tensor, boxes: torch.Tensor) -> list:
     exact = torch.equal(out, ref)
     blocks = cra.roi_align_fwd_blocks_per_sm(dtype)
     torch.cuda.synchronize()
-    log(f"[kernels] {name}: K1 max_err {err1:.3g} (tol "
-        f"{TOL_K1[dtype]:.3g}), K2 max_err {diff:.3g} (tol {tol2:.3g}), "
-        f"equal to plain {exact}, two calls equal {same}, blocks/SM "
-        f"{blocks}")
-    if not (err1 <= TOL_K1[dtype] and diff <= tol2 and same and blocks >= 2
+    log(f"[kernels] {name}: K1 max_err {err1:.3g}, equal to plain "
+        f"{exact1}, two calls equal {same1}; K2 max_err {diff:.3g} (tol "
+        f"{tol2:.3g}), equal to plain {exact}, two calls equal {same}, "
+        f"blocks/SM {blocks}")
+    if not (exact1 and same1 and diff <= tol2 and same and blocks >= 2
             and (exact or dtype != torch.bfloat16)):
         raise AssertionError(f"kernel disagrees with plain at {name}")
     # The library call rounds at other points (bf16 products or bf16 row
@@ -270,7 +280,8 @@ def k12_cases(cra, feat: torch.Tensor, boxes: torch.Tensor) -> list:
          lambda: cra.roi_weights(boxes, (H, W), OUT, RATIO, SCALE, dtype),
          lambda: cra.roi_weights_plain(boxes, (H, W), OUT, RATIO, SCALE,
                                        dtype),
-         None, k1_bytes, k1_ops, err1, TOL_K1[dtype], {}),
+         None, k1_bytes, k1_ops, err1, 0.0,
+         dict(two_calls_equal=same1, equal_to_plain=exact1)),
         ("roi_align_fwd", lambda: cra.roi_align_fwd(feat, wy, wx),
          lambda: cra.roi_align_fwd_plain(feat, wy, wx),
          lambda: k2_library(feat, wy, wx),
@@ -327,15 +338,45 @@ def phase_kernels(cra) -> list:
         f"{tol:.3g})")
     if not (long_rows and err <= tol):
         raise AssertionError("K2 disagrees with plain on long rows")
+    k1_edges(cra, dev)
     return cases
+
+
+def k1_edges(cra, dev) -> None:
+    """K1 equal to its plain version bit for bit on edge boxes of the
+    224x304 input (thinner than a feature pixel, across each border,
+    wholly outside, a point, the whole map, larger than the map) at
+    sampling ratios 2 and 6, in both dtypes."""
+    edges = torch.tensor([[[40.0, 48.0, 46.0, 160.0],
+                           [80.0, 32.0, 200.0, 35.0],
+                           [-120.0, -80.0, 48.0, 36.0],
+                           [240.0, 176.0, 360.0, 280.0],
+                           [-360.0, 40.0, -160.0, 120.0],
+                           [40.0, 480.0, 160.0, 640.0],
+                           [132.0, 84.0, 132.0, 84.0],
+                           [0.0, 0.0, 4.0 * W, 4.0 * H],
+                           [-100.0, -60.0, 4.0 * W + 90.0, 4.0 * H + 70.0]]],
+                         device=dev)
+    for ratio in (2, 6):
+        for dtype in (torch.bfloat16, torch.float32):
+            got = cra.roi_weights(edges, (H, W), OUT, ratio, SCALE, dtype)
+            want = cra.roi_weights_plain(edges, (H, W), OUT, ratio, SCALE,
+                                         dtype)
+            eq = all(torch.equal(a, b) for a, b in zip(got, want))
+            log(f"[kernels] K1 edge boxes, ratio {ratio}, "
+                f"{str(dtype).split('.')[-1]}: equal to plain {eq}")
+            if not eq:
+                raise AssertionError(f"K1 disagrees with plain on edge boxes "
+                                     f"at ratio {ratio}, {dtype}")
 
 
 def train_gt(b: int, slots: int, rng: np.random.Generator, h: int = 224,
              w: int = 304, n_inst: int = 40):
-    """bench.py's synthetic training targets: 40 boxes of 20-55 px per
-    h x w tile in `slots` slots, uint8 mask28. Image 1 repeats three of
-    its boxes in free slots (duplicate GT, so GT tie) and puts one box
-    on an anchor's exact coordinates; image 2 has every slot invalid."""
+    """bench.py's synthetic training targets: 40 (`n_inst`) boxes of
+    20-55 px per h x w tile in `slots` slots, uint8 mask28. Where four
+    slots are free, image 1 repeats three of its boxes in them (duplicate
+    GT, so GT tie) and puts one box on an anchor's exact coordinates, and
+    image 2 has every slot invalid."""
     from livecell_tpu_torch.ops.anchors import generate_anchors
     boxes = np.zeros((b, slots, 4), np.float32)
     for bi in range(b):
@@ -345,7 +386,7 @@ def train_gt(b: int, slots: int, rng: np.random.Generator, h: int = 224,
         boxes[bi, :n_inst] = np.stack([x1, y1, x1 + bw, y1 + bh], axis=1)
     valid = np.zeros((b, slots), bool)
     valid[:, :n_inst] = True
-    if b > 2:
+    if b > 2 and n_inst + 4 <= slots:
         anchors = generate_anchors((h // 4, w // 4))
         boxes[1, n_inst:n_inst + 3] = boxes[1, :3]
         boxes[1, n_inst + 3] = anchors[len(anchors) // 2]
@@ -382,12 +423,17 @@ def k4_case(cm, anchors: torch.Tensor, gt: torch.Tensor, v: torch.Tensor,
     b, i = v.shape
     n = anchors.shape[0]
     got = cm.match_anchors(anchors, gt, v, full)
+    again = cm.match_anchors(anchors, gt, v, full)
     want = cm.match_anchors_plain(anchors, gt, v, full)
     if not full:
-        got, want = (got,), (want,)
+        got, again, want = (got,), (again,), (want,)
     torch.cuda.synchronize()
+    # max_iou bit for bit (the same rounded operations as the plain
+    # version); the targets within 1e-5 relative (logf against torch.log).
     err_iou = (got[0] - want[0]).abs().max().item()
-    ok = err_iou <= 1e-6
+    iou_eq = torch.equal(got[0], want[0])
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    ok = iou_eq and same
     err = err_iou
     if full:
         err_tgt = (got[1] - want[1]).abs().max().item()
@@ -396,32 +442,34 @@ def k4_case(cm, anchors: torch.Tensor, gt: torch.Tensor, v: torch.Tensor,
         best_eq = torch.equal(got[2], want[2])
         ok = ok and rel_tgt <= 1e-5 and best_eq
         err = max(err, err_tgt)
-        log(f"[kernels] K4 {label} full: max_iou err {err_iou:.3g} "
-            f"(tol 1e-6), targets err {err_tgt:.3g} (tol 1e-5 "
-            f"relative, got {rel_tgt:.3g}), best anchor equal {best_eq}")
+        log(f"[kernels] K4 {label} full: max_iou equal to plain {iou_eq}, "
+            f"targets err {err_tgt:.3g} (tol 1e-5 relative, got "
+            f"{rel_tgt:.3g}), best anchor equal {best_eq}, two calls equal "
+            f"{same}")
     else:
-        log(f"[kernels] K4 {label} max-only: max_iou err {err_iou:.3g} "
-            f"(tol 1e-6)")
+        log(f"[kernels] K4 {label} max-only: max_iou equal to plain "
+            f"{iou_eq}, two calls equal {same}")
     if not ok:
         raise AssertionError(f"K4 disagrees with plain at {label}")
-    del got, want
+    del got, want, again
     pairs = b * n * i
     ops = (20.0 if full else 16.0) * pairs
     nbytes = n * 16 + b * i * 17 + b * n * 4 + (
         b * n * 16 + b * i * 8 if full else 0)
     bms, bby = bound(nbytes, ops)
     case = dict(
-        name="match_anchors", shape=dict(B=b, N=n, I=i, full=full),
-        max_err=err, tol=1e-6 if not full else 1e-5,
+        name="match_anchors",
+        shape=dict(B=b, N=n, I=i, full=full, valid=int(v.sum()), case=label),
+        max_err=err, tol=0.0 if not full else 1e-5,
         ms=time_ms(lambda: cm.match_anchors(anchors, gt, v, full), runs=11),
         plain_ms=time_ms(
             lambda: cm.match_anchors_plain(anchors, gt, v, full),
             warmup=1, runs=3, calls=2),
         library_ms=None,
         kernel_ms=kernel_ms(lambda: cm.match_anchors(anchors, gt, v, full),
-                            ("match_kernel", "best_index_kernel") if full
-                            else ("match_kernel",)),
-        bound_ms=bms, bound_by=bby, bytes=nbytes, operations=ops)
+                            cm.match_kernels(b, n, i, full)),
+        bound_ms=bms, bound_by=bby, bytes=nbytes, operations=ops,
+        two_calls_equal=same, equal_to_plain=iou_eq)
     torch.cuda.empty_cache()
     return case
 
@@ -512,12 +560,16 @@ def phase_train_kernels(cra, cm) -> list:
     n = anchors.shape[0]
     boxes, valid, _ = train_gt(32, 128, rng)
     cases = []
-    # K4: fixed mode (32 images x 128 slots) and quirk mode (1 "image" of
-    # the 4,096 slots concatenated).
+    # K4: fixed mode (32 images x 128 slots), quirk mode (1 "image" of
+    # the 4,096 slots concatenated), and the fixed mode's worst case,
+    # every slot holding a valid box (the kernel's work grows with them).
+    full_gt, _, _ = train_gt(32, 128, rng, n_inst=128)
     for label, gt, v in (
             ("fixed B=32 I=128", boxes, valid),
             ("quirk B=1 I=4096", boxes.reshape(1, -1, 4),
-             valid.reshape(1, -1))):
+             valid.reshape(1, -1)),
+            ("fixed all valid B=32 I=128", full_gt,
+             np.ones_like(valid))):
         gt = torch.from_numpy(gt).to(dev)
         v = torch.from_numpy(v).to(dev)
         for full in (True, False):

@@ -12,12 +12,33 @@
 //
 // K1 roi_weights_kernel replaces the Pallas kernel `_weights_kernel`
 //    (livecell_tpu/ops/pallas_roi_align.py:90, entry `roi_weights`:101).
-//    One thread per element of Wy [R, n, H] and Wx [R, n, W]. Bound by
-//    bytes: it reads 16 bytes per ROI and writes the weights (about
-//    2.3 MB at 25 tiles x 50 ROIs x 7 rows x (56 + 76) in bf16), so a
-//    call is launch-latency bound at the serving shapes. The weight is
-//    roi_common.cuh:pooled_weight, which rounds where the plain
-//    version's tensor ops round, so the f32 weights agree bit for bit.
+//    Bound by bytes: it reads 16 bytes per ROI and writes the weights
+//    (7.6 MB at 32 images x 128 ROIs x 7 rows x (56 + 76) in bf16; 2.3 MB
+//    at a frame's 25 x 50), so a call at the serving shapes is
+//    launch-latency bound. The first design gave each element of Wy
+//    [R, n, H] and Wx [R, n, W] a thread that found its row with 64-bit
+//    divisions and ran roi_common.cuh:pooled_weight whole (a division for
+//    the bin side, one in double per sample, one for the mean) to store 2
+//    bytes: bound by instructions, about 15x its byte bound. Here each
+//    thread writes one 16-byte vector of the flat output (8 bf16 or 4
+//    f32; a vector crossing a row's end takes its rows in turn) with
+//    32-bit index math. For each row it computes the constants once
+//    (start, bin side), and for each valid sample its clamped coordinate
+//    cc once: the sample's taps are positive on pixels floor(cc) and
+//    floor(cc) + 1 only, so a sample that reaches none of the vector's
+//    pixels is skipped, and one that does adds its taps to all of them
+//    without a branch (+0 where it is more than a pixel away, which
+//    leaves a sum of non-negative taps unchanged). The sample offsets
+//    (s + 0.5) / ratio come from the host; the mean is a multiplication
+//    by 1 / ratio where that is exact (ratio a power of two), else the
+//    division. A call too small to fill the card (one tile's 50 ROIs)
+//    is bound by the latency of a thread's chain, not by instructions:
+//    there each thread writes one element through pooled_weight whole,
+//    as the first design did, with 32-bit index math (one element of
+//    the vector path a thread took 20% longer there). Every sum runs
+//    over the same taps in pooled_weight's order with its float
+//    operations, so every weight is the first design's bit for bit, and
+//    the f32 weights agree with the plain version's.
 //
 // K2 roi_align_fwd_kernel replaces the Pallas kernel `_fwd_kernel`
 //    (pallas_roi_align.py:126, entry `roi_align_pallas`:197 via
@@ -83,30 +104,143 @@ using livecell::kTileX;
 using livecell::kTileY;
 using livecell::pooled_weight;
 using livecell::RowWeights;
+using livecell::sample_at;
+using livecell::sample_offset;
+using livecell::tap_weight;
+using livecell::bin_side;
 using livecell::TileShared;
 using livecell::to_f32;
 
 constexpr int kWeightThreads = 256;
+constexpr int kHostOffsets = 16;  // sample offsets the host computes
+// A call with fewer 16-byte vectors than this (about a quarter of the
+// threads 132 SMs hold) is latency-bound: one element a thread instead.
+constexpr int kMinVectors = 132 * 512;
 
-template <typename T>
+// (s + 0.5) / ratio for s < kHostOffsets, computed on the host as
+// sample_offset computes them (a double division, rounded once).
+struct SampleOffsets {
+  float v[kHostOffsets];
+};
+
+__device__ __forceinline__ float offset_of(const SampleOffsets& off, int s,
+                                           int ratio) {
+  return s < kHostOffsets ? off.v[s] : sample_offset(s, ratio);
+}
+
+// 16 bytes of weights, rounded to T.
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float (&v)[8]) {
+  livecell::store_vec(p, true, v);
+}
+
+__device__ __forceinline__ void store16(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Thread v writes the kV elements v of Wy (v < vec_y) or v - vec_y of
+// Wx, flat over [rois, n, size]: a 16-byte vector (kV = 16 / sizeof(T);
+// a partial last vector element-wise), or (kV = 1) one element through
+// pooled_weight whole. inv_ratio: 1 / ratio when that is exact (ratio a
+// power of two), else 0.
+template <typename T, int kV>
 __global__ void __launch_bounds__(kWeightThreads)
 roi_weights_kernel(const float* __restrict__ boxes, T* __restrict__ wy,
-                   T* __restrict__ wx, long long n_wy, long long total,
-                   int n, int h, int w, int ratio, float scale) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const bool is_y = i < n_wy;
-  const long long j = is_y ? i : i - n_wy;
+                   T* __restrict__ wx, int vec_y, int vec_total, int n_wy,
+                   int n_wx, int n, int h, int w, int ratio, float scale,
+                   float inv_ratio, SampleOffsets off) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= vec_total) return;
+  const bool is_y = v < vec_y;
+  const int e0 = (is_y ? v : v - vec_y) * kV;
+  const int total = is_y ? n_wy : n_wx;
   const int size = is_y ? h : w;
-  const int g = (int)(j % size);
-  const long long r = j / size;
-  const int p = (int)(r % n);
-  const long long roi = r / n;
-  const float lo = boxes[roi * 4 + (is_y ? 1 : 0)];
-  const float hi = boxes[roi * 4 + (is_y ? 3 : 2)];
+  const int axis = is_y ? 1 : 0;  // the box's lo; hi is 2 further
+  T* dst = (is_y ? wy : wx) + e0;
+  int r = e0 / size, g = e0 - r * size;
+  if constexpr (kV == 1) {
+    const int roi = r / n;
+    *dst = from_f32<T>(pooled_weight(boxes[roi * 4 + axis],
+                                     boxes[roi * 4 + axis + 2], scale, n,
+                                     size, ratio, r - roi * n, g));
+  } else {
+    float acc[kV];
+#pragma unroll
+    for (int i = 0; i < kV; ++i) acc[i] = 0.0f;
+    // The vector's elements i0 .. i0 + len - 1 are pixels g .. g + len - 1
+    // of row r (bin p of ROI roi); more than one row where the vector
+    // crosses a row's end.
+    for (int i0 = 0; i0 < kV && e0 + i0 < total;) {
+      const int len = min(size - g, kV - i0);
+      const int roi = r / n, p = r - roi * n;
+      const float lo = boxes[roi * 4 + axis], hi = boxes[roi * 4 + axis + 2];
+      const float start = __fmul_rn(lo, scale);
+      const float bin = bin_side(lo, hi, scale, n);
+      for (int s = 0; s < ratio; ++s) {
+        const float c = sample_at(start, bin, p, offset_of(off, s, ratio));
+        if (!(c >= -1.0f && c <= (float)size)) continue;  // NaN too
+        const float cc = fminf(fmaxf(c, 0.0f), (float)(size - 1));
+        // Its taps are positive on pixels floor(cc) and floor(cc) + 1 only.
+        const int g0 = (int)cc;
+        if (g0 + 1 < g || g0 >= g + len) continue;
+#pragma unroll
+        for (int i = 0; i < kV; ++i) {
+          const float t = tap_weight(cc, g + i - i0);
+          if (i >= i0 && i < i0 + len) acc[i] = __fadd_rn(acc[i], t);
+        }
+      }
+      i0 += len;
+      ++r;
+      g = 0;
+    }
+    // The mean: a multiplication by 1 / ratio where that is exact gives the
+    // same correctly rounded quotient as the division.
+    float out[kV];
+#pragma unroll
+    for (int i = 0; i < kV; ++i)
+      out[i] = inv_ratio != 0.0f ? __fmul_rn(acc[i], inv_ratio)
+                                 : __fdiv_rn(acc[i], (float)ratio);
+    if (e0 + kV <= total) {
+      store16(dst, out);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kV; ++i)
+        if (e0 + i < total) dst[i] = from_f32<T>(out[i]);
+    }
+  }
+}
 
-  (is_y ? wy : wx)[j] =
-      from_f32<T>(pooled_weight(lo, hi, scale, n, size, ratio, p, g));
+template <typename T, int kV>
+cudaError_t launch_weights_kv(const float* boxes, T* wy, T* wx, int n_wy,
+                              int n_wx, int n, int h, int w, int ratio,
+                              float scale, cudaStream_t stream) {
+  const int vec_y = (n_wy + kV - 1) / kV;
+  const int vec_total = vec_y + (n_wx + kV - 1) / kV;
+  SampleOffsets off;
+  for (int s = 0; s < kHostOffsets; ++s)
+    off.v[s] = s < ratio ? (float)((s + 0.5) / ratio) : 0.0f;
+  const float inv = (ratio & (ratio - 1)) == 0 ? 1.0f / ratio : 0.0f;
+  roi_weights_kernel<T, kV><<<(vec_total + kWeightThreads - 1) /
+                                  kWeightThreads,
+                              kWeightThreads, 0, stream>>>(
+      boxes, wy, wx, vec_y, vec_total, n_wy, n_wx, n, h, w, ratio, scale,
+      inv, off);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_weights(const void* boxes, void* wy, void* wx, int rois,
+                           int n, int h, int w, int ratio, float scale,
+                           cudaStream_t stream) {
+  constexpr int kV = 16 / sizeof(T);
+  const int n_wy = rois * n * h, n_wx = rois * n * w;
+  const float* b = static_cast<const float*>(boxes);
+  T* y = static_cast<T*>(wy);
+  T* x = static_cast<T*>(wx);
+  return (n_wy + n_wx) / kV < kMinVectors
+             ? launch_weights_kv<T, 1>(b, y, x, n_wy, n_wx, n, h, w, ratio,
+                                       scale, stream)
+             : launch_weights_kv<T, kV>(b, y, x, n_wy, n_wx, n, h, w, ratio,
+                                        scale, stream);
 }
 
 // One block per ROI (b * k + ki); the shared memory is the ROI's tap
@@ -215,25 +349,24 @@ cudaError_t launch_bwd(const void* g, const void* wy, const void* wx,
 extern "C" {
 
 // boxes [rois, 4] f32 -> wy [rois, n, h], wx [rois, n, w] (bf16 if
-// `bf16`, else f32). Returns cudaGetLastError() after the launch.
+// `bf16`, else f32), wy and wx 16-byte aligned, rois * n * max(h, w)
+// below 2^31, ratio >= 1. Returns cudaGetLastError() after the launch.
 int livecell_roi_weights(const void* boxes, void* wy, void* wx,
                          long long rois, int n, int h, int w, int ratio,
                          float scale, int bf16, void* stream) {
-  const long long n_wy = rois * n * h;
-  const long long total = n_wy + rois * n * w;
-  if (total == 0) return 0;
-  const long long blocks = (total + kWeightThreads - 1) / kWeightThreads;
+  if (rois * n * (long long)(h + w) == 0) return 0;
+  if (ratio < 1 ||
+      rois * n * (long long)(h > w ? h : w) >= (1ll << 31) ||
+      ((reinterpret_cast<uintptr_t>(wy) | reinterpret_cast<uintptr_t>(wx)) &
+       15))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    roi_weights_kernel<__nv_bfloat16><<<blocks, kWeightThreads, 0, st>>>(
-        static_cast<const float*>(boxes), static_cast<__nv_bfloat16*>(wy),
-        static_cast<__nv_bfloat16*>(wx), n_wy, total, n, h, w, ratio, scale);
-  } else {
-    roi_weights_kernel<float><<<blocks, kWeightThreads, 0, st>>>(
-        static_cast<const float*>(boxes), static_cast<float*>(wy),
-        static_cast<float*>(wx), n_wy, total, n, h, w, ratio, scale);
-  }
-  return (int)cudaGetLastError();
+  const cudaError_t e =
+      bf16 ? launch_weights<__nv_bfloat16>(boxes, wy, wx, (int)rois, n, h, w,
+                                           ratio, scale, st)
+           : launch_weights<float>(boxes, wy, wx, (int)rois, n, h, w, ratio,
+                                   scale, st);
+  return (int)e;
 }
 
 // feat [b, h, w, c], wy [b, k, n, h], wx [b, k, n, w] -> out

@@ -81,12 +81,26 @@ __device__ __forceinline__ float bin_side(float lo, float hi, float scale,
                    (float)n);
 }
 
+// The offset of sample s (of `ratio`) in its bin: (s + 0.5) / ratio in
+// double, rounded once, the plain version's Python scalar.
+__device__ __forceinline__ float sample_offset(int s, int ratio) {
+  return (float)((s + 0.5) / ratio);
+}
+
+__device__ __forceinline__ float sample_at(float start, float bin, int p,
+                                           float off) {
+  return __fadd_rn(start, __fmul_rn(__fadd_rn((float)p, off), bin));
+}
+
 __device__ __forceinline__ float sample_coord(float start, float bin, int p,
                                               int s, int ratio) {
-  // (s + 0.5) / ratio in double, rounded once: the plain version's
-  // Python scalar.
-  const float off = (float)((s + 0.5) / ratio);
-  return __fadd_rn(start, __fmul_rn(__fadd_rn((float)p, off), bin));
+  return sample_at(start, bin, p, sample_offset(s, ratio));
+}
+
+// The two-tap weight of a sample at clamped coordinate cc on pixel g:
+// positive only where |cc - g| < 1, else +0.
+__device__ __forceinline__ float tap_weight(float cc, int g) {
+  return fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(cc, (float)g))));
 }
 
 // The pooled weight of output bin p (of n) on feature pixel g along one
@@ -102,8 +116,7 @@ __device__ __forceinline__ float pooled_weight(float lo, float hi, float scale,
     const float c = sample_coord(start, bin, p, s, ratio);
     if (c >= -1.0f && c <= (float)size) {
       const float cc = fminf(fmaxf(c, 0.0f), (float)(size - 1));
-      acc = __fadd_rn(
-          acc, fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(cc, (float)g)))));
+      acc = __fadd_rn(acc, tap_weight(cc, g));
     }
   }
   return __fdiv_rn(acc, (float)ratio);

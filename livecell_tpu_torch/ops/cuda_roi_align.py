@@ -5,7 +5,9 @@ Three kernels, each with a wrapper, a plain PyTorch version and a launch
 counter (`<wrapper>.launches`, raised by one per kernel launch):
 
   K1 `roi_weights`   boxes [B,K,4] f32 -> Wy [B,K,n,H], Wx [B,K,n,W]:
-     the pooled bilinear weights (replaces `_weights_kernel`).
+     the pooled bilinear weights (replaces `_weights_kernel`): a thread
+     a 16-byte vector, each row's constants once, the taps only near
+     its samples (`roi_weights_rows_plain` replays that on the CPU).
   K2 `roi_align_fwd` features [B,H,W,C], Wy, Wx -> [B,K,n,n,C]
      (replaces `_fwd_kernel`): one block per ROI lists each weight row's
      non-zero taps (`roi_taps_plain` is that list's plain version), then
@@ -149,7 +151,7 @@ def roi_weights_plain(boxes: torch.Tensor, feat_hw: Tuple[int, int],
             cc = c.clamp(0.0, float(size - 1))
             tap = (1.0 - (cc[..., None] - grid).abs()).clamp(min=0.0)
             w = w + tap * valid[..., None]
-        return (w / sampling_ratio).to(dtype)
+        return (w / torch.full_like(w, sampling_ratio)).to(dtype)
 
     return (axis(boxes[..., 1], boxes[..., 3], feat_hw[0]),
             axis(boxes[..., 0], boxes[..., 2], feat_hw[1]))
@@ -165,7 +167,6 @@ def roi_weights(boxes: torch.Tensor, feat_hw: Tuple[int, int],
     if boxes.device.type == "cpu":
         return roi_weights_plain(boxes, feat_hw, out_size, sampling_ratio,
                                  spatial_scale, dtype)
-    dev = _require_cuda(boxes)
     if boxes.dtype != torch.float32 or boxes.dim() != 3 \
             or boxes.shape[-1] != 4:
         raise ValueError(f"roi_weights kernel takes float32 [B, K, 4] "
@@ -174,6 +175,13 @@ def roi_weights(boxes: torch.Tensor, feat_hw: Tuple[int, int],
         raise ValueError(f"roi_weights kernel writes bf16 or f32, not {dtype}")
     b, k = boxes.shape[:2]
     h, w = feat_hw
+    # The kernel indexes each tensor with 32-bit ints.
+    if sampling_ratio < 1 or b * k * out_size * max(h, w) >= 2 ** 31:
+        raise ValueError(f"roi_weights kernel takes sampling_ratio >= 1 and "
+                         f"fewer than 2^31 weights a tensor, got "
+                         f"{sampling_ratio} and {b}x{k}x{out_size}x"
+                         f"{max(h, w)}")
+    dev = _require_cuda(boxes)
     wy = torch.empty((b, k, out_size, h), dtype=dtype, device=dev)
     wx = torch.empty((b, k, out_size, w), dtype=dtype, device=dev)
     code = _lib().livecell_roi_weights(
@@ -186,6 +194,48 @@ def roi_weights(boxes: torch.Tensor, feat_hw: Tuple[int, int],
 
 
 roi_weights.launches = 0
+
+
+def roi_weights_rows_plain(boxes: torch.Tensor, feat_hw: Tuple[int, int],
+                           out_size: int = 7, sampling_ratio: int = 2,
+                           spatial_scale: float = 0.25,
+                           dtype: torch.dtype = torch.bfloat16
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain emulation of K1's decomposition, for the tests: each weight
+    row's constants once (start, bin side), each valid sample's clamped
+    coordinate cc once, and its taps only on pixels floor(cc) and
+    floor(cc) + 1 (+0 elsewhere), summed over the samples in order; the
+    mean a division by the ratio. The float operations are
+    `roi_weights_plain`'s, but the side floors at 1 pixel as the
+    kernel's fmaxf does, NaN included (roi_weights_plain's clamp passes a
+    NaN on). A call too small to fill the card runs pooled_weight per
+    element instead, the plain version's own formula. boxes [B, K, 4] ->
+    (Wy [B,K,n,H], Wx [B,K,n,W]) in `dtype`."""
+    boxes = boxes.float()
+    p = torch.arange(out_size, dtype=torch.float32, device=boxes.device)
+
+    def axis(lo, hi, size):
+        start = lo * spatial_scale
+        length = torch.fmax(hi * spatial_scale - start,
+                            torch.ones_like(start))
+        bin_sz = length / torch.full_like(length, out_size)
+        grid = torch.arange(size, dtype=torch.float32, device=boxes.device)
+        pix = torch.arange(size, device=boxes.device)
+        acc = torch.zeros(lo.shape + (out_size, size), dtype=torch.float32,
+                          device=boxes.device)
+        for s in range(sampling_ratio):
+            c = start[..., None] + (p + (s + 0.5) / sampling_ratio) \
+                * bin_sz[..., None]
+            valid = (c >= -1.0) & (c <= float(size))
+            cc = c.clamp(0.0, float(size - 1))
+            g0 = cc.nan_to_num().floor().long()[..., None]
+            near = valid[..., None] & (pix >= g0) & (pix <= g0 + 1)
+            tap = (1.0 - (cc[..., None] - grid).abs()).clamp(min=0.0)
+            acc = torch.where(near, acc + tap, acc)
+        return (acc / torch.full_like(acc, sampling_ratio)).to(dtype)
+
+    return (axis(boxes[..., 1], boxes[..., 3], feat_hw[0]),
+            axis(boxes[..., 0], boxes[..., 2], feat_hw[1]))
 
 
 # ---------------------------------------------------------------------------
