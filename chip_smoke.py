@@ -71,12 +71,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
      FPN and RPN frozen);
  12. transfer end to end: one f32 step at batch 1 with the kernels and
      with their plain versions: equal selections, losses and gradients
-     within the stated tolerances.
+     within the stated tolerances;
+ 13. data on the card: a 15-frame 704x520 split at LIVECell statistics
+     (~305 instances a frame) drawn with numpy and rasterized by the
+     port's C++ routine (which must have built), cut into 375 tiles by
+     data/tiling.py:tile_frame and written with the port's PNG encoder
+     with a COCO JSON; packed by PackedDataset on the card and on the
+     CPU: the decoded tiles equal the drawn pixels bit for bit, the
+     card's mask targets within one count of the CPU's on at most 0.1%
+     of the entries; held on the card by DeviceDataset.from_packed;
+     prints the pack time (host clock), the mask-target precompute
+     (CUDA events) and the bytes held;
+ 14. evaluation on the card: COCO AP (segm and bbox, with the box
+     metrics) by train/coco_eval.py and metrics.evaluate over the 375
+     tiles, for the full-width custom model (batch 32) and the transfer
+     model (batch 4), bf16, seed-0 weights, each with roi_backend
+     "kernel" and "plain": the two routes agree within 1e-6 in every AP
+     and box metric, K1/K2 run once per custom batch and K5 twice per
+     transfer batch on the kernel route; the card's IoU path gives the
+     CPU's AP on detections placed near the GT; K1/K2 and K5 against
+     their plain versions at the eval batches' shapes. Prints tiles/s
+     and the host AP code's share of the wall time.
 
-Prints the kernels' JSON line, then as the last line
-{"ok": true, "device": {...}}. Writes nothing outside the checkout
-but a temporary checkpoint under $TMPDIR, removed at once; the kernels
-build into a directory inside the package.
+Each phase prints its seconds. Prints the kernels' JSON line, then as
+the last line {"ok": true, "device": {...}}. Writes nothing outside the
+checkout but, under $TMPDIR, a temporary checkpoint and the split of
+phases 13-14, each removed when its phase ends; the kernels build into
+a directory inside the package.
 """
 
 from __future__ import annotations
@@ -87,7 +108,9 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -101,6 +124,21 @@ OUT, RATIO, SCALE = 7, 2, 0.25
 
 def log(*a):
     print(*a, flush=True)
+
+
+class Phase:
+    """Logs a phase's number, name and seconds when it ends."""
+
+    def __init__(self, n: int, name: str):
+        self.n, self.name = n, name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            log(f"[phase {self.n}] {self.name}: "
+                f"{time.perf_counter() - self.t0:.1f} s")
 
 
 def time_ms(fn, warmup=3, runs=21, calls=10) -> float:
@@ -786,6 +824,42 @@ def phase_checkpoint(model, opt, dev, tile: np.ndarray) -> dict:
     return res
 
 
+def phase_serve_e2e(cfg, tcfg, frame: np.ndarray) -> dict:
+    """Request (a)'s forward in f32 with roi_backend "kernel" and "plain",
+    from the same weights: valid equal; boxes, scores and mask
+    probabilities within 1e-3."""
+    from livecell_tpu_torch.models.mask_rcnn import create_model
+    from livecell_tpu_torch.serve.stitch import tile_position
+
+    tiles = np.zeros((tcfg.num_tiles, cfg.image_height, cfg.image_width, 3),
+                     np.float32)
+    for t in range(tcfg.num_tiles):
+        c0, r0 = tile_position(t, tcfg.tiles_per_row)
+        x0, y0 = c0 * tcfg.mini_tile_width, r0 * tcfg.mini_tile_height
+        tiles[t, :tcfg.tile_height, :tcfg.tile_width] = frame[
+            y0:y0 + tcfg.tile_height, x0:x0 + tcfg.tile_width] / 255.0
+    x = torch.from_numpy(tiles).cuda()
+    dets = {}
+    for backend in ("kernel", "plain"):
+        m = create_model(dataclasses.replace(
+            cfg, compute_dtype="float32", roi_backend=backend),
+            torch.Generator().manual_seed(SEED))
+        dets[backend] = m.inference_forward(x)
+        del m
+    dk, dp = dets["kernel"], dets["plain"]
+    if not torch.equal(dk.valid, dp.valid):
+        raise AssertionError("e2e: valid differs between kernel and plain")
+    v = dk.valid
+    e2e = {f: (getattr(dk, f)[v].float() - getattr(dp, f)[v].float())
+           .abs().max().item() if v.any() else 0.0
+           for f in ("boxes", "scores", "mask_probs")}
+    log(f"[e2e f32] valid {int(v.sum())} of {v.numel()}; max abs diff "
+        f"{json.dumps(e2e)} (tol 1e-3)")
+    if not (v.any() and max(e2e.values()) <= 1e-3):
+        raise AssertionError(f"e2e: kernel and plain disagree: {e2e}")
+    return e2e
+
+
 def synthetic_frame(h: int, w: int, seed: int) -> np.ndarray:
     """Gray background with noise and ~120 bright elliptic 'cells'."""
     rng = np.random.default_rng(seed)
@@ -1274,6 +1348,407 @@ def phase_transfer_e2e() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The data and evaluation slice (phases 13-14).
+# ---------------------------------------------------------------------------
+# A 15-frame split at LIVECell statistics, the size of a val or test split
+# of the reference's default preprocessing (100 A172 frames, 70/15/15).
+SPLIT_FRAMES, FRAME_W, FRAME_H = 15, 704, 520
+EVAL_B_CUSTOM, EVAL_B_TRANSFER = 32, 4
+# LIVECell's per-frame statistics (tests/util_fakedata.py): ~305
+# instances a 704x520 frame, lognormal equivalent radius of median 10 px,
+# elongation up to 3:1.
+LIVECELL_MEAN_INSTANCES = 305
+LIVECELL_RADIUS_MEDIAN, LIVECELL_RADIUS_SIGMA, LIVECELL_MAX_ASPECT = \
+    10.0, 0.45, 3.0
+
+
+def ellipse_polygon(cx, cy, rx, ry, n=16, theta=0.0):
+    """Flat polygon of an ellipse rotated by `theta` radians (a copy of
+    tests/util_fakedata.py:ellipse_polygon)."""
+    ct, st = math.cos(theta), math.sin(theta)
+    pts = []
+    for i in range(n):
+        a = 2 * math.pi * i / n
+        ex, ey = rx * math.cos(a), ry * math.sin(a)
+        pts.extend([cx + ex * ct - ey * st, cy + ex * st + ey * ct])
+    return pts
+
+
+def sample_livecell_instances(rng, frame_w, frame_h,
+                              mean_count=LIVECELL_MEAN_INSTANCES):
+    """(cx, cy, rx, ry, theta) tuples with LIVECell's per-frame count and
+    size statistics (a copy of tests/util_fakedata.py's, which imports
+    PIL)."""
+    count = max(1, int(rng.normal(mean_count, mean_count * 0.25)))
+    out = []
+    for _ in range(count):
+        r = LIVECELL_RADIUS_MEDIAN * math.exp(
+            rng.normal(0.0, LIVECELL_RADIUS_SIGMA))
+        aspect = rng.uniform(1.0, LIVECELL_MAX_ASPECT)
+        rx, ry = r * math.sqrt(aspect), r / math.sqrt(aspect)
+        out.append((rng.uniform(5, frame_w - 5), rng.uniform(5, frame_h - 5),
+                    rx, ry, rng.uniform(0, math.pi)))
+    return out
+
+
+def draw_split(root, seed: int):
+    """SPLIT_FRAMES grey frames drawn with numpy (background 30, cells
+    120-220, noise of sigma 8) with their polygon annotations, cut into
+    tiles by the port's tiler and written with its PNG encoder as the
+    split "test" of a tiled tree under `root`. Returns the frames."""
+    from livecell_tpu_torch.data.coco import polygons_to_mask
+    from livecell_tpu_torch.data.tiling import TILES_PER_IMAGE, tile_frame
+
+    rng = np.random.default_rng(seed)
+    frames, images, tile_anns = [], [], []
+    ann_id = 0
+    for i in range(SPLIT_FRAMES):
+        canvas = np.full((FRAME_H, FRAME_W), 30.0)
+        anns = []
+        for cx, cy, rx, ry, theta in sample_livecell_instances(
+                rng, FRAME_W, FRAME_H):
+            poly = ellipse_polygon(cx, cy, rx, ry, theta=theta)
+            canvas[polygons_to_mask([poly], FRAME_H, FRAME_W) > 0] = \
+                rng.uniform(120, 220)
+            xs, ys = poly[0::2], poly[1::2]
+            x1, y1 = max(min(xs), 0), max(min(ys), 0)
+            x2, y2 = min(max(xs), FRAME_W), min(max(ys), FRAME_H)
+            if x2 - x1 < 1 or y2 - y1 < 1:
+                continue
+            ann_id += 1
+            anns.append({"id": ann_id, "image_id": i + 1, "category_id": 1,
+                         "bbox": [x1, y1, x2 - x1, y2 - y1],
+                         "area": (x2 - x1) * (y2 - y1),
+                         "segmentation": [poly], "iscrowd": 0})
+        canvas += rng.normal(0.0, 8.0, canvas.shape)
+        frame = np.clip(np.rint(canvas), 0, 255).astype(np.uint8)
+        frames.append(frame)
+        info = {"id": i + 1, "file_name": f"A172_Phase_test_{i:03d}.tif",
+                "width": FRAME_W, "height": FRAME_H}
+        for rec in tile_frame(frame, info, anns, root / "test" / "images",
+                              i * TILES_PER_IMAGE):
+            images.append({k: rec[k] for k in
+                           ("id", "file_name", "width", "height")})
+            tile_anns += rec["annotations"]
+    (root / "annotations").mkdir(parents=True)
+    with open(root / "annotations" / "livecell_coco_test.json", "w") as f:
+        f.write(json.dumps({"images": images, "annotations": tile_anns,
+                            "categories": [{"id": 1, "name": "cell"}]}))
+    return frames
+
+
+def phase_data(root) -> tuple:
+    """13. A 375-tile split drawn, tiled and written (C++ raster), packed
+    on the card and on the CPU, and held on the card: the decoded tiles
+    must equal the drawn pixels bit for bit, the card's mask targets the
+    CPU's within the CPU tests' bound (one count of 1/255 on at most 0.1%
+    of the entries, tests/test_torch_dataset.py). Returns (result, the
+    card's PackedDataset, its DeviceDataset)."""
+    from livecell_tpu_torch import native
+    from livecell_tpu_torch.config import ModelConfig
+    from livecell_tpu_torch.data.dataset import PackedDataset
+    from livecell_tpu_torch.data.device_data import DeviceDataset
+    from livecell_tpu_torch.data.tiling import (
+        TILES_PER_IMAGE, tile_coordinates, tile_grid)
+    from livecell_tpu_torch.ops.mask_ops import extract_mask_targets
+
+    if native.backend() != "cpp":
+        raise AssertionError("data: the C++ rasterizer did not build")
+    t0 = time.perf_counter()
+    frames = draw_split(root, SEED + 13)
+    draw_s = time.perf_counter() - t0
+
+    # The mask-target precompute, timed by CUDA events around it (the
+    # host's rasterization of each chunk included).
+    spans = []
+    real = PackedDataset._compute_mask28
+
+    def timed(self, *args):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = real(self, *args)
+        e.record()
+        torch.cuda.synchronize()
+        spans.append(s.elapsed_time(e))
+        return out
+
+    cfg = ModelConfig()
+    PackedDataset._compute_mask28 = timed
+    try:
+        t0 = time.perf_counter()
+        pds = PackedDataset(str(root), "test", cfg, cache=False,
+                            device="cuda")
+        pack_s = time.perf_counter() - t0
+    finally:
+        PackedDataset._compute_mask28 = real
+    t0 = time.perf_counter()
+    cpu = PackedDataset(str(root), "test", cfg, cache=False, device="cpu")
+    pack_cpu_s = time.perf_counter() - t0
+
+    n_tiles = SPLIT_FRAMES * TILES_PER_IMAGE
+    grid = int(math.sqrt(TILES_PER_IMAGE)) + 2
+    coords = tile_coordinates(grid, *tile_grid(FRAME_W, FRAME_H, grid))
+    want = np.stack([np.repeat(f[y0:y1, x0:x1, None], 3, axis=2)
+                     for f in frames for x0, y0, x1, y1 in coords])
+    pixels_equal = bool(len(pds) == n_tiles
+                        and np.array_equal(pds.images, want))
+    diff = np.abs(pds.mask28.astype(np.int16) - cpu.mask28.astype(np.int16))
+    same_arrays = all(np.array_equal(getattr(pds, k), getattr(cpu, k))
+                      for k in ("images", "boxes", "labels", "offsets",
+                                "image_ids"))
+
+    # The extraction alone on the card: one chunk of 256 instances.
+    from livecell_tpu_torch.data.coco import CocoIndex, ann_to_mask
+    coco = CocoIndex(pds.ann_file)
+    anns = [a for i in pds.image_ids for a in coco.get_anns(int(i))][:256]
+    dense = torch.from_numpy(np.stack([ann_to_mask(a, *pds.tile_hw)
+                                       for a in anns])).cuda()
+    boxes = torch.from_numpy(pds.boxes[:256]).cuda()
+    chunk_ms = time_ms(lambda: extract_mask_targets(dense, boxes), runs=5,
+                       calls=5)
+    del dense, boxes
+
+    t0 = time.perf_counter()
+    dd = DeviceDataset.from_packed(pds, device="cuda")
+    torch.cuda.synchronize()
+    put_s = time.perf_counter() - t0
+    rows = np.arange(5) * (len(pds) // 5)
+    images, targets = dd.batch(torch.from_numpy(rows).cuda())
+    gathered = pds.gather(rows)
+    resident = bool(torch.equal(images.cpu(), torch.from_numpy(gathered[0]))
+                    and all(torch.equal(targets[k].cpu(),
+                                        torch.from_numpy(v))
+                            for k, v in gathered[1].items()))
+    res = dict(frames=SPLIT_FRAMES, tiles=len(pds),
+               instances=int(len(pds.boxes)),
+               max_per_tile=int(pds.instance_counts().max()),
+               draw_and_tile_s=draw_s, pack_s=pack_s,
+               mask28_ms=sum(spans), mask28_chunks=math.ceil(
+                   len(pds.boxes) / 256), extract_256_ms=chunk_ms,
+               pack_cpu_s=pack_cpu_s, pixels_equal=pixels_equal,
+               cpu_arrays_equal=same_arrays,
+               mask28_max_count_diff=int(diff.max()),
+               mask28_diff_share=float((diff > 0).mean()),
+               device_nbytes=dd.nbytes, put_s=put_s, resident_equal=resident)
+    log("[data]", json.dumps(res))
+    if not (pixels_equal and same_arrays and resident and diff.max() <= 1
+            and (diff > 0).mean() <= 1e-3 and len(spans) == 1):
+        raise AssertionError(f"data: {res}")
+    return res, pds, dd
+
+
+def near_gt_eval_step(pds, b: int, dev: str):
+    """An eval step whose detections (on `dev`) are the split's GT boxes
+    jittered by ~2 px with their mask targets as masks, plus 8 random
+    boxes a tile, batch after batch of pds.batches(b): COCO AP on it is
+    far from 0."""
+    rng = np.random.default_rng(SEED + 14)
+    order = iter(range(0, len(pds), b))
+
+    def step(images):
+        tiles = (np.arange(b) + next(order)) % len(pds)
+        d = 100
+        boxes = np.zeros((b, d, 4), np.float32)
+        probs = np.zeros((b, d, 28, 28), np.float32)
+        valid = np.zeros((b, d), bool)
+        for bi, t in enumerate(tiles):
+            lo, hi = pds.offsets[t], pds.offsets[t + 1]
+            n = min(hi - lo, d - 8)
+            boxes[bi, :n] = pds.boxes[lo:lo + n] + rng.normal(0, 2, (n, 4))
+            probs[bi, :n] = pds.mask28[lo:lo + n] / 255.0
+            xy = rng.uniform(0, 250, (8, 2))
+            boxes[bi, n:n + 8] = np.concatenate([xy, xy + 20], 1)
+            probs[bi, n:n + 8] = rng.uniform(size=(8, 28, 28))
+            valid[bi, :n + 8] = True
+        from livecell_tpu_torch.models.detector import Detections
+        return Detections(
+            boxes=torch.from_numpy(boxes).to(dev),
+            scores=torch.from_numpy(rng.uniform(0.1, 1, (b, d)).astype(
+                np.float32)).to(dev),
+            labels=torch.ones((b, d), dtype=torch.int32, device=dev),
+            valid=torch.from_numpy(valid).to(dev),
+            mask_probs=torch.from_numpy(probs).to(dev))
+
+    return step
+
+
+def eval_counters() -> dict:
+    """The launch counters of the kernels of the two models' inference
+    forwards."""
+    from livecell_tpu_torch.ops import cuda_ms_roi_align as cms
+    from livecell_tpu_torch.ops import cuda_roi_align as cra
+    return {"roi_weights": cra.roi_weights,
+            "roi_align_fwd": cra.roi_align_fwd,
+            "ms_roi_align_fwd": cms.ms_roi_align_fwd}
+
+
+def evaluate_model(label: str, model, pds, batch: int) -> dict:
+    """evaluate_coco_multi (segm and bbox, box metrics) and
+    metrics.evaluate over the split, with the launch counters zeroed just
+    before each and read just after, the split's GT masks rasterized
+    anew (a cold evaluation). The wall time of evaluate_coco_multi is
+    split (host clock, each part ended by a synchronize, as its caller
+    fetches the result at once) into the model's forwards, the per-tile
+    paste and mask IoU on the card, the host's GT rasterization, the
+    host AP code (ranking, matching, AP) and the rest; one eval batch's
+    forward is profiled for the card's busy share."""
+    from livecell_tpu_torch.parallel.train_step import make_eval_step
+    from livecell_tpu_torch.train import coco_eval, metrics
+
+    run = make_eval_step(model)
+    counters = eval_counters()
+    parts = {"forward": 0.0, "fused_mask_iou": 0.0, "_gt_packed": 0.0,
+             "compute_ap": 0.0}
+    real = {k: getattr(coco_eval, k) for k in parts if k != "forward"}
+
+    def timed(name, fn):
+        def wrapped(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            parts[name] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    step = timed("forward", run)
+    pds.__dict__.pop("_gt_mask_cache", None)
+    for fn in counters.values():
+        fn.launches = 0
+    for k, fn in real.items():
+        setattr(coco_eval, k, timed(k, fn))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aps = coco_eval.evaluate_coco_multi(
+            step, pds, batch, iou_types=("segm", "bbox"), box_metrics=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for k, fn in real.items():
+            setattr(coco_eval, k, fn)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    box = metrics.evaluate(run, pds, batch)
+    box_s = time.perf_counter() - t0
+    box_launches = {k: fn.launches for k, fn in counters.items()}
+    images = next(pds.batches(batch))[0]
+    res = dict(label=label, batch=batch,
+               batches=math.ceil(len(pds) / batch), eval_s=wall,
+               tiles_per_s=len(pds) / wall,
+               host_ap_share=parts["compute_ap"] / wall,
+               parts_s=dict(parts, other=wall - sum(parts.values())),
+               launches=launches, box_eval_launches=box_launches,
+               box_eval_s=box_s, ap=aps, box_metrics=box,
+               forward_profile=profile_call(lambda: run(images)))
+    log("[eval]", json.dumps(res))
+    return res
+
+
+def phase_eval(pds) -> dict:
+    """14. Both full-width models, seed-0 weights, served in bf16, over
+    the 375-tile split with roi_backend "kernel" and "plain": AP, AP50
+    and AP75 of both IoU types and the box metrics must agree within
+    1e-6 (K1, K2 and K5 equal their plain versions bit for bit in bf16,
+    so any gap is a fault), K1/K2 must run once per custom batch and K5
+    twice per transfer batch on the kernel route, none on the plain one;
+    the card's IoU path must give the CPU's AP on detections near the GT;
+    K1/K2 and K5 against their plain versions at the eval batches'
+    shapes."""
+    from livecell_tpu_torch.config import ModelConfig, TransferConfig
+    from livecell_tpu_torch.models.mask_rcnn import create_model
+    from livecell_tpu_torch.models.transfer import create_transfer_model
+    from livecell_tpu_torch.ops import cuda_ms_roi_align as cms
+    from livecell_tpu_torch.ops import cuda_roi_align as cra
+    from livecell_tpu_torch.train import coco_eval
+
+    # The card's unpack, paste and IoU against the CPU's, at full size,
+    # on detections that overlap the GT.
+    near = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        near[dev] = coco_eval.evaluate_coco_multi(
+            near_gt_eval_step(pds, EVAL_B_CUSTOM, dev), pds, EVAL_B_CUSTOM,
+            device=dev)
+        near[dev + "_s"] = time.perf_counter() - t0
+    log("[eval] near-GT detections, card vs CPU:", json.dumps(near))
+    if not (near["cuda"]["segm"]["AP"] > 0.2 and all(
+            abs(near["cuda"][t][k] - near["cpu"][t][k]) <= 1e-6
+            for t in ("segm", "bbox") for k in ("AP", "AP50", "AP75"))):
+        raise AssertionError(f"eval: card and CPU disagree: {near}")
+
+    cases = []
+    gen = torch.Generator().manual_seed(SEED + 14)
+    feat = torch.randn((EVAL_B_CUSTOM, H, W, C), generator=gen).cuda()
+    boxes = torch.cat([make_boxes(50, gen) for _ in range(2)])[
+        :EVAL_B_CUSTOM].contiguous().cuda()
+    cases += k12_cases(cra, feat.to(torch.bfloat16), boxes)
+    del feat
+    pyr = [torch.randn((EVAL_B_TRANSFER, h, w, C), generator=gen).cuda()
+           .to(torch.bfloat16) for h, w in T_PYRAMID]
+    for k, s in ((1000, 7), (100, 14)):
+        cases += ms_roi_cases(cms, pyr, transfer_boxes(
+            EVAL_B_TRANSFER, k, gen).cuda(), s, "eval")
+    del pyr
+    torch.cuda.empty_cache()
+    for c in cases:
+        log("[kernels]", json.dumps(c))
+
+    n_gt = int(np.minimum(pds.instance_counts(),
+                          ModelConfig().max_instances).sum())
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for label, build, batch in (
+            ("custom", lambda r: create_model(
+                ModelConfig(roi_backend=r),
+                torch.Generator().manual_seed(SEED)), EVAL_B_CUSTOM),
+            ("transfer", lambda r: create_transfer_model(
+                TransferConfig(roi_backend=r),
+                torch.Generator().manual_seed(SEED)), EVAL_B_TRANSFER)):
+        for route in ("kernel", "plain"):
+            model = build(route)
+            runs[label, route] = evaluate_model(f"{label} {route}", model,
+                                                pds, batch)
+            del model
+            torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+
+    out = {"cases": cases}
+    for label, batch in (("custom", EVAL_B_CUSTOM),
+                         ("transfer", EVAL_B_TRANSFER)):
+        k, p = runs[label, "kernel"], runs[label, "plain"]
+        nb = math.ceil(len(pds) / batch)
+        per = ({"roi_weights": nb, "roi_align_fwd": nb,
+                "ms_roi_align_fwd": 0} if label == "custom" else
+               {"roi_weights": 0, "roi_align_fwd": 0,
+                "ms_roi_align_fwd": 2 * nb})
+        gaps = [abs(k["ap"][t][m] - p["ap"][t][m])
+                for t in ("segm", "bbox") for m in ("AP", "AP50", "AP75")]
+        gaps += [abs(k["ap"]["box_metrics"][m] - p["ap"]["box_metrics"][m])
+                 for m in k["ap"]["box_metrics"]]
+        zero = {n: 0 for n in per}
+        ok = (max(gaps) <= 1e-6 and k["launches"] == per
+              and k["box_eval_launches"] == per
+              and p["launches"] == p["box_eval_launches"] == zero
+              and k["box_metrics"] == k["ap"]["box_metrics"]
+              and k["box_metrics"]["total_gt_instances"] == n_gt
+              and all(0.0 <= k["ap"][t][m] <= 1.0
+                      for t in ("segm", "bbox")
+                      for m in ("AP", "AP50", "AP75")))
+        log(f"[eval {label}] kernel vs plain max gap {max(gaps):.3g} (tol "
+            f"1e-6); launches {k['launches']} per split, expected {per}; "
+            f"{k['tiles_per_s']:.2f} tiles/s, host AP share "
+            f"{k['host_ap_share']:.3f}, parts (s) "
+            f"{json.dumps(k['parts_s'])}")
+        if not ok:
+            raise AssertionError(f"eval {label}: kernel {k}, plain {p}")
+        out[label] = dict(kernel=k, plain=p, launches_per_batch={
+            n: v / nb for n, v in k["launches"].items()})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1285,7 +1760,6 @@ def main() -> int:
     from livecell_tpu_torch.ops import cuda_ms_roi_align as cms
     from livecell_tpu_torch.ops import cuda_roi_align as cra
     from livecell_tpu_torch.serve.app import InferenceEngine
-    from livecell_tpu_torch.serve.stitch import tile_position
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1302,98 +1776,93 @@ def main() -> int:
         f"opt_einsum {torch.backends.opt_einsum.is_available()}")
 
     # 2. build
-    t0 = time.perf_counter()
-    logs = _build.build_all()
-    log(f"[build] {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"[build] {name}: {line.strip()}")
+    with Phase(2, "build"):
+        logs = _build.build_all()
+        log(f"[build] {sorted(logs)}")
+        for name, text in logs.items():
+            for line in text.splitlines():
+                if "registers" in line or "spill" in line or "error" in line:
+                    log(f"[build] {name}: {line.strip()}")
 
     # 3. kernels against their plain versions: K1/K2 at the serving
     # shapes, then K4, K3 and K1/K2 at the training shapes.
-    cases = phase_kernels(cra)
-    cases += phase_train_kernels(cra, cm)
+    with Phase(3, "kernels"):
+        cases = phase_kernels(cra)
+        cases += phase_train_kernels(cra, cm)
 
     # 4. serve
     tcfg = TileConfig()
     cfg = ModelConfig()
-    model = create_model(cfg, torch.Generator().manual_seed(SEED))
     frame = synthetic_frame(tcfg.frame_height, tcfg.frame_width, SEED)
     tile = frame[:tcfg.tile_height, :tcfg.tile_width]
-    eng = InferenceEngine(model=model)
-    req_a = serve(eng, frame, cra, 1, "a: frame, reference defaults")
-    req_b = serve(eng, tile, cra, 1, "b: 300x222 tile")
-    prof = profile_request(eng, frame)
-    log("[profile a]", json.dumps(prof))
-    del eng, model
-    model_c = create_model(dataclasses.replace(cfg, decode_proposals=True),
-                           torch.Generator().manual_seed(SEED))
-    eng_c = InferenceEngine(model=model_c, dets=256, infer_nms=0.7,
-                            det_nms=0.6)
-    req_c = serve(eng_c, frame, cra, 2,
-                  "c: frame, decode_proposals --dets 256 --infer_nms 0.7 "
-                  "--det_nms 0.6")
-    log("[profile c]", json.dumps(profile_request(eng_c, frame)))
-    del eng_c, model_c
-    torch.cuda.empty_cache()
+    with Phase(4, "serve"):
+        model = create_model(cfg, torch.Generator().manual_seed(SEED))
+        eng = InferenceEngine(model=model)
+        req_a = serve(eng, frame, cra, 1, "a: frame, reference defaults")
+        req_b = serve(eng, tile, cra, 1, "b: 300x222 tile")
+        prof = profile_request(eng, frame)
+        log("[profile a]", json.dumps(prof))
+        del eng, model
+        model_c = create_model(dataclasses.replace(cfg, decode_proposals=True),
+                               torch.Generator().manual_seed(SEED))
+        eng_c = InferenceEngine(model=model_c, dets=256, infer_nms=0.7,
+                                det_nms=0.6)
+        req_c = serve(eng_c, frame, cra, 2,
+                      "c: frame, decode_proposals --dets 256 --infer_nms 0.7 "
+                      "--det_nms 0.6")
+        log("[profile c]", json.dumps(profile_request(eng_c, frame)))
+        del eng_c, model_c
+        torch.cuda.empty_cache()
 
     # 5. end to end, kernel vs plain RoIAlign, f32
-    tiles = np.zeros((tcfg.num_tiles, cfg.image_height, cfg.image_width, 3),
-                     np.float32)
-    for t in range(tcfg.num_tiles):
-        c0, r0 = tile_position(t, tcfg.tiles_per_row)
-        x0, y0 = c0 * tcfg.mini_tile_width, r0 * tcfg.mini_tile_height
-        tiles[t, :tcfg.tile_height, :tcfg.tile_width] = frame[
-            y0:y0 + tcfg.tile_height, x0:x0 + tcfg.tile_width] / 255.0
-    x = torch.from_numpy(tiles).cuda()
-    dets = {}
-    for backend in ("kernel", "plain"):
-        m = create_model(dataclasses.replace(
-            cfg, compute_dtype="float32", roi_backend=backend),
-            torch.Generator().manual_seed(SEED))
-        dets[backend] = m.inference_forward(x)
-        del m
-    dk, dp = dets["kernel"], dets["plain"]
-    if not torch.equal(dk.valid, dp.valid):
-        raise AssertionError("e2e: valid differs between kernel and plain")
-    v = dk.valid
-    e2e = {f: (getattr(dk, f)[v].float() - getattr(dp, f)[v].float())
-           .abs().max().item() if v.any() else 0.0
-           for f in ("boxes", "scores", "mask_probs")}
-    log(f"[e2e f32] valid {int(v.sum())} of {v.numel()}; max abs diff "
-        f"{json.dumps(e2e)} (tol 1e-3)")
-    if not (v.any() and max(e2e.values()) <= 1e-3):
-        raise AssertionError(f"e2e: kernel and plain disagree: {e2e}")
+    with Phase(5, "serve end to end"):
+        phase_serve_e2e(cfg, tcfg, frame)
 
     # 6. train: T1 and T2 at batch 32 through train_epoch, from a pool of
     # synthetic tiles on the card.
-    pool = make_pool(cfg, POOL_TILES, "cuda", SEED)
-    train = {}
-    for label, kw in TRAIN_CFGS.items():
-        train[label], tmodel, topt = phase_train(
-            label, dataclasses.replace(cfg, **kw), pool, TRAIN_B, "cuda")
-    torch.cuda.empty_cache()
+    with Phase(6, "train"):
+        pool = make_pool(cfg, POOL_TILES, "cuda", SEED)
+        train = {}
+        for label, kw in TRAIN_CFGS.items():
+            train[label], tmodel, topt = phase_train(
+                label, dataclasses.replace(cfg, **kw), pool, TRAIN_B, "cuda")
+        torch.cuda.empty_cache()
 
     # 7. train end to end, kernel vs plain, f32, batch 4 (T2).
-    phase_train_e2e(dataclasses.replace(cfg, **TRAIN_CFGS["T2"]), pool, 4,
-                    "cuda")
+    with Phase(7, "train end to end"):
+        phase_train_e2e(dataclasses.replace(cfg, **TRAIN_CFGS["T2"]), pool,
+                        4, "cuda")
 
     # 8. checkpoint round trip of the T2 model, served.
-    phase_checkpoint(tmodel, topt, "cuda", tile)
-
-    del tmodel, topt
-    torch.cuda.empty_cache()
+    with Phase(8, "checkpoint"):
+        phase_checkpoint(tmodel, topt, "cuda", tile)
+        del tmodel, topt, pool
+        torch.cuda.empty_cache()
 
     # 9.-12. the transfer model: its kernels at its shapes, a frame
     # request, T3 training, and the f32 kernel-vs-plain step.
-    cases += phase_transfer_kernels(cms, cm)
-    torch.cuda.empty_cache()
-    req_d = phase_transfer_serve(frame, tcfg)
-    torch.cuda.empty_cache()
-    t3 = phase_transfer_train()
-    torch.cuda.empty_cache()
-    phase_transfer_e2e()
+    with Phase(9, "transfer kernels"):
+        cases += phase_transfer_kernels(cms, cm)
+        torch.cuda.empty_cache()
+    with Phase(10, "transfer serve"):
+        req_d = phase_transfer_serve(frame, tcfg)
+        torch.cuda.empty_cache()
+    with Phase(11, "transfer train"):
+        t3 = phase_transfer_train()
+        torch.cuda.empty_cache()
+    with Phase(12, "transfer end to end"):
+        phase_transfer_e2e()
+        torch.cuda.empty_cache()
+
+    # 13.-14. data and evaluation: a 375-tile split drawn, tiled, packed
+    # and held on the card, both models evaluated over it.
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase(13, "data"):
+            data, pds, dd = phase_data(Path(tmp))
+            del dd
+        with Phase(14, "evaluation"):
+            evals = phase_eval(pds)
+    cases += evals["cases"]
 
     # The kernels' line: every kernel's headline case at its training
     # step's shape (K1-K3: B = 32, K = 128 bf16; K4: T2's full form; K5,
@@ -1428,6 +1897,9 @@ def main() -> int:
                     if kname in r["launches_per_step"]}
         per_path.update({r["request"][0]: r["launches"][kname]
                          for r in serve_reqs if kname in r["launches"]})
+        per_path.update({f"eval {m} per batch": evals[m][
+            "launches_per_batch"][kname] for m in ("custom", "transfer")
+            if kname in evals[m]["launches_per_batch"]})
         path = "T3" if kname.startswith("ms_") else "T2"
         kernels.append(dict(
             name=kname, route="cuda",

@@ -40,6 +40,40 @@ def resize_weight_matrix(src: int, dst: int) -> np.ndarray:
     return w.astype(np.float32)
 
 
+def _int_trunc(x: torch.Tensor) -> torch.Tensor:
+    """torch Tensor.int() semantics: truncate toward zero (not floor)."""
+    return torch.trunc(x)
+
+
+def crop_resize_matrices(boxes: torch.Tensor, src_hw: Tuple[int, int],
+                         dst: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-box weight matrices for GT-mask target extraction (the
+    reference's extract_mask_target): the box is truncated to ints and
+    clamped (x1 in [0, w-1], x2 in [x1+1, w]), the mask cropped to it and
+    resized bilinearly to dst x dst with align_corners=False.
+
+    boxes [K, 4] float xyxy -> (Wy [K, dst, H], Wx [K, dst, W]) with
+    target[k] = Wy[k] @ mask[k] @ Wx[k].T.
+    """
+    h, w = src_hw
+    x1 = _int_trunc(boxes[:, 0]).clamp(0, w - 1)
+    y1 = _int_trunc(boxes[:, 1]).clamp(0, h - 1)
+    x2 = torch.maximum(x1 + 1, _int_trunc(boxes[:, 2]).clamp(max=w))
+    y2 = torch.maximum(y1 + 1, _int_trunc(boxes[:, 3]).clamp(max=h))
+
+    def axis_weights(lo, hi, size):
+        span = hi - lo                                          # [K]
+        i = torch.arange(dst, dtype=boxes.dtype, device=boxes.device)
+        # A tensor divisor: PyTorch divides by a Python scalar as a
+        # multiplication by its reciprocal, JAX divides.
+        step = span / torch.full_like(span, dst)
+        local = (i + 0.5) * step[:, None] - 0.5
+        local = torch.minimum(local.clamp(min=0.0), span[:, None] - 1.0)
+        return interp_weights(lo[:, None] + local, size)
+
+    return axis_weights(y1, y2, h), axis_weights(x1, x2, w)
+
+
 def roi_sample_matrices(
     boxes: torch.Tensor,
     feat_hw: Tuple[int, int],

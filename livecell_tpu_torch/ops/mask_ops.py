@@ -1,17 +1,48 @@
-"""Mask resizing, reprojection and pasting, batched and static-shaped
-(counterpart of livecell_tpu/ops/mask_ops.py: resize_bilinear,
-reproject_mask28, paste_masks).
+"""Mask target extraction, resizing, reprojection and pasting, batched
+and static-shaped (counterpart of livecell_tpu/ops/mask_ops.py:
+extract_mask_targets, resize_bilinear, reproject_mask28, paste_masks).
 
 All are two-matrix interpolation resamplings (ops/interp.py) in f32.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
 
-from livecell_tpu_torch.ops.interp import paste_matrices, resize_weight_matrix
+from livecell_tpu_torch.ops.interp import (
+    crop_resize_matrices, paste_matrices, resize_weight_matrix)
+
+
+@contextlib.contextmanager
+def true_f32(device_type: str):
+    """Matrix products in true f32 inside the block: no autocast, and on
+    the card no TF32 (cuBLAS would otherwise round the operands to 10
+    mantissa bits where the process allows it)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.autocast(device_type, enabled=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def extract_mask_targets(masks: torch.Tensor, boxes: torch.Tensor,
+                         mask_size: int = 28) -> torch.Tensor:
+    """Crop each mask to its box and resize it to mask_size^2 (the
+    reference crops at the matched GT box).
+
+    masks [K, H, W] float or uint8, boxes [K, 4] xyxy -> [K, mask_size,
+    mask_size] f32, computed in true f32.
+    """
+    k, h, w = masks.shape
+    wy, wx = crop_resize_matrices(boxes.float(), (h, w), mask_size)
+    with true_f32(masks.device.type):
+        t = torch.bmm(wy, masks.float())                   # [K, m, W]
+        return torch.bmm(t, wx.transpose(1, 2))            # [K, m, m]
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]

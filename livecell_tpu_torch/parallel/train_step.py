@@ -1,6 +1,7 @@
-"""One training step on one card (counterpart of
-livecell_tpu/parallel/train_step.py: _normalize_batch, make_step_fn; and
-of livecell_tpu/train/train_custom.py: build_optimizer).
+"""One training step on one card, and the batched inference step of an
+evaluation (counterpart of livecell_tpu/parallel/train_step.py:
+_normalize_batch, make_step_fn, make_eval_step; and of
+livecell_tpu/train/train_custom.py: build_optimizer).
 
 The step runs the forward with its loss dict, the backward, the global
 gradient norm over every parameter and an optimizer update: AdamW under
@@ -17,18 +18,43 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from livecell_tpu_torch.device import resolve_device
+
 
 def normalize_batch(images: torch.Tensor,
                     targets: Optional[Dict[str, torch.Tensor]]
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """On-device normalization of uint8 batches: images / 255 and mask
-    targets / 255; float inputs pass through unchanged."""
+    targets / 255; float inputs pass through unchanged. The divisor is a
+    tensor: PyTorch divides by a Python scalar as a multiplication by its
+    reciprocal, JAX divides."""
     if images.dtype == torch.uint8:
-        images = images.float() / 255.0
+        images = images.float() / torch.full((), 255.0,
+                                             device=images.device)
     if targets is not None and targets.get("mask28") is not None \
             and targets["mask28"].dtype == torch.uint8:
-        targets = dict(targets, mask28=targets["mask28"].float() / 255.0)
+        m = targets["mask28"]
+        targets = dict(targets, mask28=m.float() / torch.full(
+            (), 255.0, device=m.device))
     return images, targets
+
+
+def make_eval_step(model: nn.Module, device=None) -> Callable:
+    """step(images) -> Detections: a batch (uint8 [B, H, W, 3] or float
+    in [0, 1], numpy or tensor) on `device` (the card unless the caller
+    passes "cpu"), normalized as normalize_batch does and run through the
+    model's inference forward in eval mode without gradients. Works for
+    the custom and the transfer model alike."""
+    dev = resolve_device(device)
+
+    def step(images):
+        images, _ = normalize_batch(torch.as_tensor(images, device=dev),
+                                    None)
+        model.eval()
+        with torch.no_grad():
+            return model.inference_forward(images)
+
+    return step
 
 
 def build_optimizer(model: nn.Module, lr: float, weight_decay: float,
