@@ -91,17 +91,44 @@ Phases, each fatal on failure (non-zero exit, no result line):
      transfer batch on the kernel route; the card's IoU path gives the
      CPU's AP on detections placed near the GT; K1/K2 and K5 against
      their plain versions at the eval batches' shapes. Prints tiles/s
-     and the host AP code's share of the wall time.
+     and the host AP code's share of the wall time;
+ 15. custom trainer CLI: a "sparse" split (scripts/make_synth_splits.py's
+     mode: 12 ellipses a frame, 14/3/3 frames -> 350/75/75 tiles) drawn
+     with numpy and the port's C++ raster, then
+     train/train_custom.py:main with the flagship quality command
+     (batch 16, 10 epochs, --lr_step_size 6 --fixed_heads
+     --decode_proposals --mask_samples 64 --coco_ap --device_data on),
+     full-width ModelConfig(), bf16, from a temporary working directory:
+     K1-K4 once per training step, K1/K2 once per RoIAlign pass of each
+     eval batch (two with decode_proposals), finite losses, meta.json at
+     epoch 10, the checkpoint served through InferenceEngine(model_path)
+     on request (a)'s frame, test mask AP50 >= 0.5; K1-K4 against their
+     plain versions (as in phase 3) on the inputs the CLI gave them, the
+     first training step's (K1/K2/K3 at 16 x 128 ROIs, K4 full and
+     max-only at 16 images x 32 slots) and both RoIAlign passes of the
+     first test batch (16 x 50); prints each epoch's seconds and img/s,
+     the box metrics and the test mask AP/AP50/AP75;
+ 16. transfer trainer CLI: its own "sparse" split, then
+     train/train_transfer.py:main (batch 4, 2 + 8 epochs, clip 10,
+     --coco_ap --device_data on), full-width TransferConfig() from
+     seed-0 weights: K4/K5/K6 1/2/2 per training step, K5 twice per eval
+     batch, the backbone, FPN and RPN bit for bit unchanged over stage
+     1 and moved by stage 2, a checkpoint that names the transfer model
+     and serves a frame and a 300x222 tile (K5 twice each), test mask
+     AP50 >= 0.5; prints each stage's epoch seconds and img/s and the
+     test mask and box AP/AP50/AP75.
 
 Each phase prints its seconds. Prints the kernels' JSON line, then as
 the last line {"ok": true, "device": {...}}. Writes nothing outside the
-checkout but, under $TMPDIR, a temporary checkpoint and the split of
-phases 13-14, each removed when its phase ends; the kernels build into
-a directory inside the package.
+checkout but, under $TMPDIR, a temporary checkpoint, the split of
+phases 13-14 and the splits and working directories of phases 15 and
+16, each removed when its phase ends; the kernels build into a
+directory inside the package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -251,38 +278,43 @@ def bound(nbytes: float, ops: float) -> tuple:
                                   else "operations")
 
 
-def k12_cases(cra, feat: torch.Tensor, boxes: torch.Tensor) -> list:
+def k12_cases(cra, feat: torch.Tensor, boxes: torch.Tensor, out: int = OUT,
+              ratio: int = RATIO, scale: float = SCALE,
+              label: str = "") -> list:
     """K1 and K2 against their plain versions on one map [B, H, W, C] and
-    one box set [B, K, 4], checked and timed; K2's library yardstick
-    (one three-operand torch.einsum) checked and timed too."""
+    one box set [B, K, 4] (K1 at `out`, `ratio`, `scale`), checked and
+    timed; K2's library yardstick (one three-operand torch.einsum)
+    checked and timed too."""
     dtype = feat.dtype
+    b, h, w, c = feat.shape
     k = boxes.shape[1]
-    name = f"B={feat.shape[0]} K={k} {str(dtype).split('.')[-1]}"
+    name = f"{label + ' ' if label else ''}B={b} K={k} " \
+        f"{str(dtype).split('.')[-1]}"
     esz = feat.element_size()
     # K1: equal to its plain version bit for bit, in both dtypes.
-    wy, wx = cra.roi_weights(boxes, (H, W), OUT, RATIO, SCALE, dtype)
-    py, px = cra.roi_weights_plain(boxes, (H, W), OUT, RATIO, SCALE, dtype)
+    wy, wx = cra.roi_weights(boxes, (h, w), out, ratio, scale, dtype)
+    py, px = cra.roi_weights_plain(boxes, (h, w), out, ratio, scale, dtype)
     err1 = max((wy.float() - py.float()).abs().max().item(),
                (wx.float() - px.float()).abs().max().item())
     exact1 = torch.equal(wy, py) and torch.equal(wx, px)
     same1 = all(torch.equal(a, b) for a, b in zip(
-        (wy, wx), cra.roi_weights(boxes, (H, W), OUT, RATIO, SCALE, dtype)))
+        (wy, wx), cra.roi_weights(boxes, (h, w), out, ratio, scale, dtype)))
     # K2, on the kernel's own weights.
-    out = cra.roi_align_fwd(feat, wy, wx)
-    same = torch.equal(out, cra.roi_align_fwd(feat, wy, wx))
+    res = cra.roi_align_fwd(feat, wy, wx)
+    same = torch.equal(res, cra.roi_align_fwd(feat, wy, wx))
     ref = cra.roi_align_fwd_plain(feat, wy, wx)
-    diff = (out.float() - ref.float()).abs().max().item()
-    scale = ref.float().abs().max().item()
+    diff = (res.float() - ref.float()).abs().max().item()
+    mag = ref.float().abs().max().item()
     # bf16: the row result and the output are rounded to bf16 in both,
     # after f32 sums taken in another order, which can flip a rounding:
     # 2 bf16 ulps at the output's magnitude. f32: reassociation of <= 16
     # taps, 1e-5 relative.
     tol2 = (2 * 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) \
-        * max(scale, 1.0)
+        * max(mag, 1.0)
     # The kernel sums the non-zero taps in order, as the plain einsum does
     # over its zeros: in bf16 the two agree bit for bit; in f32 cuBLAS may
     # take its own order (recorded, not required).
-    exact = torch.equal(out, ref)
+    exact = torch.equal(res, ref)
     blocks = cra.roi_align_fwd_blocks_per_sm(dtype)
     torch.cuda.synchronize()
     log(f"[kernels] {name}: K1 max_err {err1:.3g}, equal to plain "
@@ -308,15 +340,16 @@ def k12_cases(cra, feat: torch.Tensor, boxes: torch.Tensor) -> list:
     del lib
 
     k1_bytes = boxes.numel() * 4 + (wy.numel() + wx.numel()) * esz
-    k1_ops = 12.0 * RATIO * (wy.numel() + wx.numel())
-    k2_bytes = (feat.numel() + wy.numel() + wx.numel() + out.numel()) * esz
-    k2_ops = k2_operations(wy, wx, C)
-    shape = dict(B=feat.shape[0], H=H, W=W, C=C, K=k, dtype=str(dtype))
+    k1_ops = 12.0 * ratio * (wy.numel() + wx.numel())
+    k2_bytes = (feat.numel() + wy.numel() + wx.numel() + res.numel()) * esz
+    k2_ops = k2_operations(wy, wx, c)
+    shape = dict(B=b, H=h, W=w, C=c, K=k, dtype=str(dtype),
+                 **({"out": out, "case": label} if label else {}))
     cases = []
     for kname, fn, plain, library, nbytes, ops, err, tol, extra in (
         ("roi_weights",
-         lambda: cra.roi_weights(boxes, (H, W), OUT, RATIO, SCALE, dtype),
-         lambda: cra.roi_weights_plain(boxes, (H, W), OUT, RATIO, SCALE,
+         lambda: cra.roi_weights(boxes, (h, w), out, ratio, scale, dtype),
+         lambda: cra.roi_weights_plain(boxes, (h, w), out, ratio, scale,
                                        dtype),
          None, k1_bytes, k1_ops, err1, 0.0,
          dict(two_calls_equal=same1, equal_to_plain=exact1)),
@@ -337,7 +370,7 @@ def k12_cases(cra, feat: torch.Tensor, boxes: torch.Tensor) -> list:
             kernel_ms=kernel_ms(fn, (kname + "_kernel",)),
             bound_ms=bms, bound_by=bby, bytes=nbytes, operations=ops,
             **extra))
-    del out, ref, wy, wx, py, px
+    del res, ref, wy, wx, py, px
     torch.cuda.empty_cache()
     return cases
 
@@ -528,19 +561,29 @@ def spans_check(got: torch.Tensor, want: torch.Tensor) -> dict:
 
 def k3_case(cra, rois: torch.Tensor, dtype, gen: torch.Generator,
             label: str = "") -> dict:
-    """K3 (its spans pre-pass and main kernel) against its plain version
-    and its library yardstick on boxes [B, K, 4] over the 56x76x256 map:
-    checked (tolerance, covering spans, two calls equal bit for bit) and
-    timed."""
+    """K3 on boxes [B, K, 4] over the 56x76x256 map, with K1's weights
+    and a random output gradient: k3_check."""
     b, k = rois.shape[:2]
-    dev = rois.device
+    wy, wx = cra.roi_weights(rois, (H, W), OUT, RATIO, SCALE, dtype)
+    g = torch.randn((b, k, OUT, OUT, C), generator=gen).to(rois.device,
+                                                          dtype)
+    return k3_check(cra, g, wy, wx, (H, W), label)
+
+
+def k3_check(cra, g: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
+             hw: tuple, label: str = "") -> dict:
+    """K3 (its spans pre-pass and main kernel) against its plain version
+    and its library yardstick on an output gradient g [B, K, n, n, C] and
+    K1's weights for an [H, W] map: checked (tolerance, covering spans,
+    two calls equal bit for bit) and timed."""
+    b, k = g.shape[:2]
+    c = g.shape[-1]
+    dtype = g.dtype
     name = f"{label + ' ' if label else ''}B={b} K={k} " \
         f"{str(dtype).split('.')[-1]}"
-    wy, wx = cra.roi_weights(rois, (H, W), OUT, RATIO, SCALE, dtype)
-    g = torch.randn((b, k, OUT, OUT, C), generator=gen).to(dev, dtype)
-    got = cra.roi_align_bwd(g, wy, wx, (H, W))
-    again = cra.roi_align_bwd(g, wy, wx, (H, W))
-    ref = cra.roi_align_bwd_plain(g, wy, wx, (H, W))
+    got = cra.roi_align_bwd(g, wy, wx, hw)
+    again = cra.roi_align_bwd(g, wy, wx, hw)
+    ref = cra.roi_align_bwd_plain(g, wy, wx, hw)
     diff = (got.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
     # bf16: u and dF are rounded to bf16 in both after f32 sums in
@@ -567,19 +610,21 @@ def k3_case(cra, rois: torch.Tensor, dtype, gen: torch.Generator,
         raise AssertionError(f"K3 disagrees at {name}")
     del lib, ref, again
     esz = g.element_size()
-    nbytes = (g.numel() + wy.numel() + wx.numel() + b * H * W * C) * esz
-    ops = k3_operations(wy, wx, C)
+    nbytes = (g.numel() + wy.numel() + wx.numel() + b * hw[0] * hw[1] * c) \
+        * esz
+    ops = k3_operations(wy, wx, c)
     bms, bby = bound(nbytes, ops)
     case = dict(
         name="roi_align_bwd",
-        shape=dict(B=b, H=H, W=W, C=C, K=k, dtype=str(dtype), case=label),
+        shape=dict(B=b, H=hw[0], W=hw[1], C=c, K=k, dtype=str(dtype),
+                   case=label),
         max_err=diff, tol=tol,
-        ms=time_ms(lambda: cra.roi_align_bwd(g, wy, wx, (H, W))),
-        plain_ms=time_ms(lambda: cra.roi_align_bwd_plain(g, wy, wx, (H, W)),
+        ms=time_ms(lambda: cra.roi_align_bwd(g, wy, wx, hw)),
+        plain_ms=time_ms(lambda: cra.roi_align_bwd_plain(g, wy, wx, hw),
                          warmup=1, runs=5, calls=2),
         library_ms=time_ms(lambda: k3_library(g, wy, wx), runs=11),
         library_err=err_lib, library_tol=tol_lib,
-        kernel_ms=kernel_ms(lambda: cra.roi_align_bwd(g, wy, wx, (H, W)),
+        kernel_ms=kernel_ms(lambda: cra.roi_align_bwd(g, wy, wx, hw),
                             ("roi_spans_kernel", "roi_align_bwd_kernel")),
         bound_ms=bms, bound_by=bby, bytes=nbytes, operations=ops,
         two_calls_equal=same, blocks_per_sm=blocks, **spans)
@@ -1361,6 +1406,11 @@ EVAL_B_CUSTOM, EVAL_B_TRANSFER = 32, 4
 LIVECELL_MEAN_INSTANCES = 305
 LIVECELL_RADIUS_MEDIAN, LIVECELL_RADIUS_SIGMA, LIVECELL_MAX_ASPECT = \
     10.0, 0.45, 3.0
+# The "sparse" split of scripts/make_synth_splits.py, on which the JAX
+# package's quality runs were measured (STATUS.md "Round 3"): 12 cells a
+# frame, 14/3/3 frames -> 350/75/75 tiles.
+SPARSE_CELLS = 12
+SPARSE_FRAMES = (("train", 14), ("val", 3), ("test", 3))
 
 
 def ellipse_polygon(cx, cy, rx, ry, n=16, theta=0.0):
@@ -1392,50 +1442,72 @@ def sample_livecell_instances(rng, frame_w, frame_h,
     return out
 
 
-def draw_split(root, seed: int):
-    """SPLIT_FRAMES grey frames drawn with numpy (background 30, cells
-    120-220, noise of sigma 8) with their polygon annotations, cut into
-    tiles by the port's tiler and written with its PNG encoder as the
-    split "test" of a tiled tree under `root`. Returns the frames."""
+def sample_sparse_instances(rng, frame_w, frame_h, count=SPARSE_CELLS):
+    """(cx, cy, rx, ry, theta) tuples of the "sparse" split
+    (scripts/make_synth_splits.py): `count` axis-aligned ellipses, centres
+    30 px or more from the border, radii 12-30 px (a copy of
+    tests/util_fakedata.py's uniform mode, which draws with PIL)."""
+    return [(rng.uniform(30, frame_w - 30), rng.uniform(30, frame_h - 30),
+             rng.uniform(12, 30), rng.uniform(12, 30), 0.0)
+            for _ in range(count)]
+
+
+def draw_split(root, seed: int, mode: str = "livecell",
+               frames=(("test", SPLIT_FRAMES),)) -> dict:
+    """Grey frames drawn with numpy with their polygon annotations, cut
+    into tiles by the port's tiler and written with its PNG encoder as
+    the splits of a tiled tree under `root`: `frames` gives each split's
+    frame count. `mode` "livecell": LIVECell's statistics, cells 120-220
+    on 30 with noise of sigma 8; "sparse": 12 ellipses a frame, 120-220
+    on 30, no noise. Returns {split: [frames]}."""
     from livecell_tpu_torch.data.coco import polygons_to_mask
     from livecell_tpu_torch.data.tiling import TILES_PER_IMAGE, tile_frame
 
     rng = np.random.default_rng(seed)
-    frames, images, tile_anns = [], [], []
-    ann_id = 0
-    for i in range(SPLIT_FRAMES):
-        canvas = np.full((FRAME_H, FRAME_W), 30.0)
-        anns = []
-        for cx, cy, rx, ry, theta in sample_livecell_instances(
-                rng, FRAME_W, FRAME_H):
-            poly = ellipse_polygon(cx, cy, rx, ry, theta=theta)
-            canvas[polygons_to_mask([poly], FRAME_H, FRAME_W) > 0] = \
-                rng.uniform(120, 220)
-            xs, ys = poly[0::2], poly[1::2]
-            x1, y1 = max(min(xs), 0), max(min(ys), 0)
-            x2, y2 = min(max(xs), FRAME_W), min(max(ys), FRAME_H)
-            if x2 - x1 < 1 or y2 - y1 < 1:
-                continue
-            ann_id += 1
-            anns.append({"id": ann_id, "image_id": i + 1, "category_id": 1,
-                         "bbox": [x1, y1, x2 - x1, y2 - y1],
-                         "area": (x2 - x1) * (y2 - y1),
-                         "segmentation": [poly], "iscrowd": 0})
-        canvas += rng.normal(0.0, 8.0, canvas.shape)
-        frame = np.clip(np.rint(canvas), 0, 255).astype(np.uint8)
-        frames.append(frame)
-        info = {"id": i + 1, "file_name": f"A172_Phase_test_{i:03d}.tif",
-                "width": FRAME_W, "height": FRAME_H}
-        for rec in tile_frame(frame, info, anns, root / "test" / "images",
-                              i * TILES_PER_IMAGE):
-            images.append({k: rec[k] for k in
-                           ("id", "file_name", "width", "height")})
-            tile_anns += rec["annotations"]
+    out = {}
     (root / "annotations").mkdir(parents=True)
-    with open(root / "annotations" / "livecell_coco_test.json", "w") as f:
-        f.write(json.dumps({"images": images, "annotations": tile_anns,
-                            "categories": [{"id": 1, "name": "cell"}]}))
-    return frames
+    for split, n_frames in frames:
+        drawn, images, tile_anns = [], [], []
+        ann_id = 0
+        for i in range(n_frames):
+            canvas = np.full((FRAME_H, FRAME_W), 30.0)
+            anns = []
+            cells = (sample_livecell_instances(rng, FRAME_W, FRAME_H)
+                     if mode == "livecell" else
+                     sample_sparse_instances(rng, FRAME_W, FRAME_H))
+            for cx, cy, rx, ry, theta in cells:
+                poly = ellipse_polygon(cx, cy, rx, ry, theta=theta)
+                canvas[polygons_to_mask([poly], FRAME_H, FRAME_W) > 0] = \
+                    rng.uniform(120, 220)
+                xs, ys = poly[0::2], poly[1::2]
+                x1, y1 = max(min(xs), 0), max(min(ys), 0)
+                x2, y2 = min(max(xs), FRAME_W), min(max(ys), FRAME_H)
+                if x2 - x1 < 1 or y2 - y1 < 1:
+                    continue
+                ann_id += 1
+                anns.append({"id": ann_id, "image_id": i + 1,
+                             "category_id": 1,
+                             "bbox": [x1, y1, x2 - x1, y2 - y1],
+                             "area": (x2 - x1) * (y2 - y1),
+                             "segmentation": [poly], "iscrowd": 0})
+            if mode == "livecell":
+                canvas += rng.normal(0.0, 8.0, canvas.shape)
+            frame = np.clip(np.rint(canvas), 0, 255).astype(np.uint8)
+            drawn.append(frame)
+            info = {"id": i + 1,
+                    "file_name": f"A172_Phase_{split}_{i:03d}.tif",
+                    "width": FRAME_W, "height": FRAME_H}
+            for rec in tile_frame(frame, info, anns, root / split / "images",
+                                  i * TILES_PER_IMAGE):
+                images.append({k: rec[k] for k in
+                               ("id", "file_name", "width", "height")})
+                tile_anns += rec["annotations"]
+        with open(root / "annotations" / f"livecell_coco_{split}.json",
+                  "w") as f:
+            f.write(json.dumps({"images": images, "annotations": tile_anns,
+                                "categories": [{"id": 1, "name": "cell"}]}))
+        out[split] = drawn
+    return out
 
 
 def phase_data(root) -> tuple:
@@ -1456,7 +1528,7 @@ def phase_data(root) -> tuple:
     if native.backend() != "cpp":
         raise AssertionError("data: the C++ rasterizer did not build")
     t0 = time.perf_counter()
-    frames = draw_split(root, SEED + 13)
+    frames = draw_split(root, SEED + 13)["test"]
     draw_s = time.perf_counter() - t0
 
     # The mask-target precompute, timed by CUDA events around it (the
@@ -1749,6 +1821,346 @@ def phase_eval(pds) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The trainer CLIs (phases 15-16).
+# ---------------------------------------------------------------------------
+# The JAX package's quality commands: the flagship custom recipe
+# (scripts/quality_matrix.py:83-90 with --coco_ap) and the two-stage
+# from-scratch transfer run (STATUS.md "Round 3").
+CUSTOM_B, TRANSFER_B = 16, 4
+CUSTOM_CLI = ["--batch_size", str(CUSTOM_B), "--lr", "0.001",
+              "--num_epochs", "10", "--lr_step_size", "6", "--fixed_heads",
+              "--decode_proposals", "--mask_samples", "64", "--coco_ap",
+              "--device_data", "on"]
+TRANSFER_CLI = ["--batch_size", str(TRANSFER_B), "--stage1_epochs", "2",
+                "--stage2_epochs", "8", "--clip_grad_norm", "10",
+                "--coco_ap", "--device_data", "on"]
+# A model that has not learned scores about 0 (PERF.md §4); the JAX
+# package reached 0.901 and 0.976 on these runs.
+MIN_TEST_MASK_AP50 = 0.5
+
+
+def sparse_tiles(split: str) -> int:
+    return dict(SPARSE_FRAMES)[split] * 25
+
+
+def counted(fn, counters: dict, into: dict):
+    """`fn`, adding to `into` the launches of `counters` each call makes."""
+    def wrapped(*args, **kw):
+        before = {k: c.launches for k, c in counters.items()}
+        out = fn(*args, **kw)
+        for k, c in counters.items():
+            into[k] = into.get(k, 0) + c.launches - before[k]
+        return out
+    return wrapped
+
+
+@contextlib.contextmanager
+def patched(module, fns: dict):
+    """The module's names in `fns` bound to the given objects inside the
+    block, restored after it."""
+    saved = {k: getattr(module, k) for k in fns}
+    try:
+        for k, fn in fns.items():
+            setattr(module, k, fn)
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(module, k, fn)
+
+
+class Recorder:
+    """Stands in for a kernel's wrapper under its name in the module that
+    calls it: passes every call on, and keeps copies of the arguments of
+    the first `keep` calls made while `scope` is set. `launches` is the
+    wrapper's own counter, which the wrapper raises through that name."""
+
+    def __init__(self, fn, keep: int):
+        self.fn, self.keep, self.scope, self.calls = fn, keep, None, {}
+
+    def __call__(self, *args):
+        if self.scope is not None:
+            seen = self.calls.setdefault(self.scope, [])
+            if len(seen) < self.keep:
+                seen.append(tuple(a.detach().clone() if torch.is_tensor(a)
+                                  else a for a in args))
+        return self.fn(*args)
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, n: setattr(self.fn, "launches", n))
+
+
+def scoped(fn, recorders, scope: str):
+    """`fn`, with every recorder's scope set to `scope` while it runs."""
+    def wrapped(*args, **kw):
+        for r in recorders:
+            r.scope = scope
+        try:
+            return fn(*args, **kw)
+        finally:
+            for r in recorders:
+                r.scope = None
+    return wrapped
+
+
+def run_cli(module, argv: list, root, wraps: dict, counters: dict):
+    """module.main(argv) from `root` (where it writes models/ and
+    outputs/), the module's functions named in `wraps` replaced by their
+    wrappers while it runs; returns (its result, the launches of
+    `counters` over the whole run, counted from 0)."""
+    import os
+    cwd = os.getcwd()
+    for c in counters.values():
+        c.launches = 0
+    os.chdir(root)
+    try:
+        with patched(module, wraps):
+            out = module.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def cli_kernel_cases(cra, cm, rec: dict) -> list:
+    """K1-K4 against their plain versions on the inputs the custom CLI
+    gave them (`rec`: the recorders of phase_custom_cli): K1/K2, K3 and
+    K4 (full and max-only) on the first training step's, K1/K2 on both
+    RoIAlign passes of the first test batch (proposals, then the refined
+    detections)."""
+    cases = []
+    passes = [("train", 0)] + [("test", i) for i in range(
+        len(rec["roi_weights"].calls["test"]))]
+    for scope, i in passes:
+        boxes, _, out, ratio, scale, _ = rec["roi_weights"].calls[scope][i]
+        feat = rec["roi_align_fwd"].calls[scope][i][0]
+        cases += k12_cases(cra, feat, boxes, out, ratio, scale,
+                           f"custom CLI {scope} pass {i + 1}")
+    g, wy, wx, hw = rec["roi_align_bwd"].calls["train"][0]
+    cases.append(k3_check(cra, g, wy, wx, hw, "custom CLI train"))
+    anchors, gt, valid, _ = rec["match_anchors"].calls["train"][0]
+    b, slots = valid.shape
+    for full in (True, False):
+        cases.append(k4_case(cm, anchors, gt, valid, full,
+                             f"custom CLI train B={b} I={slots}"))
+    for c in cases:
+        log("[kernels]", json.dumps(c))
+    return cases
+
+
+def check_served(label: str, engine, image, counters: dict, want: dict):
+    """One request through `engine` with the counters zeroed just before
+    it: the launches must be `want`, the output well formed."""
+    for c in counters.values():
+        c.launches = 0
+    boxes, scores, masks = engine.predict(image, score_threshold=0.0)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    h, w = image.shape[:2]
+    res = dict(request=label, detections=len(boxes), launches=launches)
+    log("[cli serve]", json.dumps(res))
+    if not (launches == want and np.isfinite(boxes).all()
+            and np.isfinite(scores).all()
+            and masks.shape == (len(boxes), h, w)):
+        raise AssertionError(f"{label}: {res}, expected launches {want}")
+    return res
+
+
+def phase_custom_cli(root, frame: np.ndarray) -> dict:
+    """15. train_custom.main with the flagship quality command on a
+    "sparse" split (350/75/75 tiles), full-width ModelConfig(), bf16
+    compute: K1-K4 once per training step, K1/K2 once per RoIAlign pass
+    of each eval batch (two with decode_proposals), finite losses, a
+    checkpoint of epoch 10 that InferenceEngine serves, K1-K4 held
+    against their plain versions on the inputs the run gave them
+    (cli_kernel_cases), and test mask AP50 >= MIN_TEST_MASK_AP50."""
+    from livecell_tpu_torch.models import mask_rcnn
+    from livecell_tpu_torch.ops import cuda_match as cm
+    from livecell_tpu_torch.ops import cuda_roi_align as cra
+    from livecell_tpu_torch.serve.app import InferenceEngine
+    from livecell_tpu_torch.train import train_custom
+
+    t0 = time.perf_counter()
+    draw_split(root, SEED + 15, "sparse", SPARSE_FRAMES)
+    draw_s = time.perf_counter() - t0
+    counters = train_counters()
+    # Each kernel's inputs from the first training step and the first
+    # test batch (two RoIAlign passes with decode_proposals).
+    rec = {k: Recorder(fn, 1 if k in ("roi_align_bwd", "match_anchors")
+                       else 2) for k, fn in counters.items()}
+    recs = list(rec.values())
+    train_l, test_l = {}, {}
+    with patched(cra, {k: rec[k] for k in
+                       ("roi_weights", "roi_align_fwd", "roi_align_bwd")}), \
+            patched(mask_rcnn, {"match_anchors": rec["match_anchors"]}):
+        out, total = run_cli(
+            train_custom, ["--data_dir", str(root)] + CUSTOM_CLI, root,
+            {"train_epoch": scoped(counted(
+                train_custom.train_epoch, counters, train_l), recs, "train"),
+             "evaluate_coco": scoped(counted(
+                 train_custom.evaluate_coco, counters, test_l), recs,
+                 "test")}, counters)
+    model = out["model"]
+    steps = out["steps_per_epoch"] * len(out["epoch_seconds"])
+    per_fwd = 2 if model.cfg.decode_proposals else 1
+    sweep = math.ceil(sparse_tiles("test") / CUSTOM_B)
+    # Validation every epoch, the test box metrics, the test AP sweep.
+    eval_batches = (len(out["epoch_seconds"]) + 2) * sweep
+    want_total = {"roi_weights": steps + per_fwd * eval_batches,
+                  "roi_align_fwd": steps + per_fwd * eval_batches,
+                  "roi_align_bwd": steps, "match_anchors": steps}
+    want_train = {k: steps for k in counters}
+    want_test = {"roi_weights": per_fwd * sweep,
+                 "roi_align_fwd": per_fwd * sweep, "roi_align_bwd": 0,
+                 "match_anchors": 0}
+    with open(Path(root) / out["model_path"] / "meta.json") as f:
+        meta = json.load(f)
+    ap = out["test_ap"]
+    res = dict(draw_and_tile_s=draw_s, steps=steps,
+               epoch_s=out["epoch_seconds"], img_per_s=out["img_per_s"],
+               train_losses=out["train_losses"],
+               val=out["val_metrics"][-1], test=out["test_metrics"],
+               test_mask_ap=ap, launches=total, train_launches=train_l,
+               test_sweep_launches=test_l, eval_batches=eval_batches,
+               launches_per_step={k: v / steps for k, v in train_l.items()},
+               launches_per_test_batch={k: v / sweep
+                                        for k, v in test_l.items()})
+    log("[custom cli]", json.dumps(res))
+    log(f"[custom cli] epochs (s): "
+        f"{', '.join(f'{x:.2f}' for x in out['epoch_seconds'])}; img/s: "
+        f"{', '.join(f'{x:.1f}' for x in out['img_per_s'])}; test mask AP "
+        f"{ap['AP']:.4f} AP50 {ap['AP50']:.4f} AP75 {ap['AP75']:.4f}")
+    if not (total == want_total and train_l == want_train
+            and test_l == want_test):
+        raise AssertionError(
+            f"custom cli: launches {total} (train {train_l}, test sweep "
+            f"{test_l}), expected {want_total} ({want_train}, {want_test})")
+    if not (np.isfinite(out["train_losses"]).all()
+            and meta["epoch"] == len(out["epoch_seconds"])):
+        raise AssertionError(f"custom cli: losses {out['train_losses']}, "
+                             f"meta epoch {meta.get('epoch')}")
+    out_path = out["model_path"]
+    del out, model
+    torch.cuda.empty_cache()
+    res["cases"] = cli_kernel_cases(cra, cm, rec)
+    del rec, recs
+    engine = InferenceEngine(model_path=str(Path(root) / out_path))
+    served = check_served("custom checkpoint, request (a)'s frame", engine,
+                          frame, {k: counters[k] for k in
+                                  ("roi_weights", "roi_align_fwd")},
+                          {"roi_weights": per_fwd, "roi_align_fwd": per_fwd})
+    res["served"] = served
+    if not ap["AP50"] >= MIN_TEST_MASK_AP50:
+        raise AssertionError(f"custom cli: test mask AP50 {ap['AP50']:.4f} "
+                             f"< {MIN_TEST_MASK_AP50}")
+    return res
+
+
+def phase_transfer_cli(root, frame: np.ndarray) -> dict:
+    """16. train_transfer.main with the two-stage from-scratch command on
+    a "sparse" split, full-width TransferConfig() from seed-0 weights:
+    K4/K5/K6 1/2/2 per training step and K5 twice per eval batch; the
+    backbone, FPN and RPN bit for bit unchanged over stage 1 and moved
+    by stage 2; a checkpoint that names the transfer model and serves a
+    frame and a 300x222 tile with K5 twice per forward; test mask AP50
+    >= MIN_TEST_MASK_AP50."""
+    from livecell_tpu_torch.ops import cuda_match as cm
+    from livecell_tpu_torch.ops import cuda_ms_roi_align as cms
+    from livecell_tpu_torch.serve.app import InferenceEngine
+    from livecell_tpu_torch.train import checkpoint, train_transfer
+
+    t0 = time.perf_counter()
+    draw_split(root, SEED + 16, "sparse", SPARSE_FRAMES)
+    draw_s = time.perf_counter() - t0
+    counters = {"match_anchors": cm.match_anchors,
+                "ms_roi_align_fwd": cms.ms_roi_align_fwd,
+                "ms_roi_align_bwd": cms.ms_roi_align_bwd}
+    frozen = train_transfer.FROZEN_STAGE1
+    snaps = []
+    real_opt = train_transfer.stage_optimizer
+
+    def stage_optimizer(model, *a, **kw):
+        snaps.append({n: p.detach().clone()
+                      for n, p in model.named_parameters()
+                      if n.split(".")[0] in frozen})
+        return real_opt(model, *a, **kw)
+
+    train_l, test_l = {}, {}
+    out, total = run_cli(
+        train_transfer, ["--data_dir", str(root)] + TRANSFER_CLI, root,
+        {"train_epoch": counted(train_transfer.train_epoch, counters,
+                                train_l),
+         "evaluate_coco_multi": counted(train_transfer.evaluate_coco_multi,
+                                        counters, test_l),
+         "stage_optimizer": stage_optimizer}, counters)
+    model = out["model"]
+    final = {n: p.detach() for n, p in model.named_parameters()
+             if n.split(".")[0] in frozen}
+    s1, s2 = snaps
+    stage1_still = all(torch.equal(s1[n], s2[n]) for n in s1)
+    stage2_moved = {m: sum(not torch.equal(s2[n], final[n]) for n in s2
+                           if n.split(".")[0] == m) /
+                    sum(n.split(".")[0] == m for n in s2) for m in frozen}
+    del snaps, s1, s2, final
+    n_epochs = sum(len(v) for v in out["stage_seconds"].values())
+    steps = sparse_tiles("train") // TRANSFER_B * n_epochs
+    sweep = math.ceil(sparse_tiles("test") / TRANSFER_B)
+    eval_batches = (n_epochs + 2) * sweep
+    want_train = {"match_anchors": steps, "ms_roi_align_fwd": 2 * steps,
+                  "ms_roi_align_bwd": 2 * steps}
+    want_total = dict(want_train, ms_roi_align_fwd=2 * steps
+                      + 2 * eval_batches)
+    want_test = {"match_anchors": 0, "ms_roi_align_fwd": 2 * sweep,
+                 "ms_roi_align_bwd": 0}
+    kind, _, _ = checkpoint.load_model_state(
+        str(Path(root) / out["model_path"]))
+    aps = out["test_ap"]
+    res = dict(draw_and_tile_s=draw_s, steps=steps,
+               stage_epoch_s=out["stage_seconds"],
+               stage_img_per_s=out["stage_img_per_s"],
+               val=out["history"][-1], test=out["test_metrics"],
+               test_ap=aps, launches=total, train_launches=train_l,
+               test_sweep_launches=test_l, eval_batches=eval_batches,
+               launches_per_step={k: v / steps for k, v in train_l.items()},
+               launches_per_test_batch={k: v / sweep
+                                        for k, v in test_l.items()},
+               stage1_frozen_unchanged=stage1_still,
+               stage2_moved_share=stage2_moved, checkpoint_type=kind)
+    log("[transfer cli]", json.dumps(res))
+    for st, secs in out["stage_seconds"].items():
+        log(f"[transfer cli] stage {st} epochs (s): "
+            f"{', '.join(f'{x:.2f}' for x in secs)}; img/s: "
+            f"{', '.join(f'{x:.1f}' for x in out['stage_img_per_s'][st])}")
+    log(f"[transfer cli] test mask AP {aps['segm']['AP']:.4f} AP50 "
+        f"{aps['segm']['AP50']:.4f} AP75 {aps['segm']['AP75']:.4f}; box AP "
+        f"{aps['bbox']['AP']:.4f} AP50 {aps['bbox']['AP50']:.4f} AP75 "
+        f"{aps['bbox']['AP75']:.4f}")
+    if not (total == want_total and train_l == want_train
+            and test_l == want_test):
+        raise AssertionError(
+            f"transfer cli: launches {total} (train {train_l}, test sweep "
+            f"{test_l}), expected {want_total} ({want_train}, {want_test})")
+    if not (stage1_still and min(stage2_moved.values()) > 0.5
+            and kind == "transfer"):
+        raise AssertionError(f"transfer cli: stage 1 frozen unchanged "
+                             f"{stage1_still}, stage 2 moved "
+                             f"{stage2_moved}, checkpoint type {kind}")
+    del out, model
+    engine = InferenceEngine(model_path=str(
+        Path(root) / "models" / "maskrcnn_resnet50_two_stage.ckpt"))
+    k5 = {"ms_roi_align_fwd": cms.ms_roi_align_fwd}
+    res["served"] = [
+        check_served("transfer checkpoint, request (a)'s frame", engine,
+                     frame, k5, {"ms_roi_align_fwd": 2}),
+        check_served("transfer checkpoint, 300x222 tile", engine,
+                     frame[:222, :300], k5, {"ms_roi_align_fwd": 2})]
+    if not aps["segm"]["AP50"] >= MIN_TEST_MASK_AP50:
+        raise AssertionError(f"transfer cli: test mask AP50 "
+                             f"{aps['segm']['AP50']:.4f} < "
+                             f"{MIN_TEST_MASK_AP50}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1863,6 +2275,20 @@ def main() -> int:
         with Phase(14, "evaluation"):
             evals = phase_eval(pds)
     cases += evals["cases"]
+    del pds
+    torch.cuda.empty_cache()
+
+    # 15.-16. the trainer CLIs, each on its own "sparse" split and from
+    # its own working directory, both removed when the phase ends.
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase(15, "custom trainer CLI"):
+            cli_custom = phase_custom_cli(Path(tmp), frame)
+    cases += cli_custom["cases"]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase(16, "transfer trainer CLI"):
+            cli_transfer = phase_transfer_cli(Path(tmp), frame)
+    torch.cuda.empty_cache()
 
     # The kernels' line: every kernel's headline case at its training
     # step's shape (K1-K3: B = 32, K = 128 bf16; K4: T2's full form; K5,
@@ -1900,6 +2326,11 @@ def main() -> int:
         per_path.update({f"eval {m} per batch": evals[m][
             "launches_per_batch"][kname] for m in ("custom", "transfer")
             if kname in evals[m]["launches_per_batch"]})
+        for m, r in (("custom", cli_custom), ("transfer", cli_transfer)):
+            if kname in r["launches_per_step"]:
+                per_path[f"{m} CLI per step"] = r["launches_per_step"][kname]
+                per_path[f"{m} CLI test sweep per batch"] = r[
+                    "launches_per_test_batch"][kname]
         path = "T3" if kname.startswith("ms_") else "T2"
         kernels.append(dict(
             name=kname, route="cuda",

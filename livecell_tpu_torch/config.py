@@ -3,7 +3,9 @@
 The port's own copy of the configuration dataclasses of the JAX package
 (livecell_tpu/config.py), so that the port imports nothing of it. Field
 names, defaults and the JSON sidecar format are the same, so a
-`model_config.json` written by either package loads in the other.
+`model_config.json` written by either package loads in the other; the
+port's sidecar also names its model (`config_to_dict`'s `model_type`),
+so a transfer checkpoint carries its `TransferConfig`.
 
 Three fields change meaning. `roi_backend` and `match_backend` select
 the route of ops/cuda_roi_align.py and ops/cuda_match.py ("auto": the
@@ -191,14 +193,9 @@ class ModelConfig:
                 * self.num_anchors_per_cell)
 
 
-def model_config_to_dict(mcfg: ModelConfig) -> dict:
-    """JSON-serializable dict of a ModelConfig (tuples become lists)."""
-    d = dataclasses.asdict(mcfg)
-    return {k: list(v) if isinstance(v, tuple) else v for k, v in d.items()}
-
-
 def model_config_from_dict(d: dict) -> ModelConfig:
-    """Inverse of model_config_to_dict; unknown keys are ignored and the
+    """A ModelConfig from a sidecar dict (config_to_dict's, or the JAX
+    package's model_config_to_dict's); unknown keys are ignored and the
     JAX package's route names map onto the port's (JAX_ROUTES)."""
     fields = {f.name for f in dataclasses.fields(ModelConfig)}
     kw = {k: tuple(v) if isinstance(v, list) else v
@@ -249,6 +246,56 @@ def add_dense_flags(parser) -> None:
                         help="proposal NMS IoU (reference 0.4)")
     parser.add_argument("--det_nms", type=float, default=0.0,
                         help="final detection NMS IoU (reference 0.5)")
+
+
+def add_train_shape_flags(parser) -> None:
+    """Attach the training-side dense-scene flags (the JAX package's,
+    same names and defaults): anchor geometry and the proposal and RPN
+    sampling budgets, stored in the checkpoint's sidecar so evaluation
+    rebuilds the same model."""
+    parser.add_argument("--anchor_sizes", type=str, default=None,
+                        help="comma-separated anchor sizes (reference "
+                             "32,64,128)")
+    parser.add_argument("--anchor_ratios", type=str, default=None,
+                        help="comma-separated anchor aspect ratios "
+                             "(reference 0.5,1,2)")
+    parser.add_argument("--train_topk", type=int, default=0,
+                        help="training proposals kept before sampling "
+                             "(reference 500)")
+    parser.add_argument("--train_samples", type=int, default=0,
+                        help="proposals sampled into the box/mask heads "
+                             "per image (reference 128)")
+    parser.add_argument("--rpn_batch", type=int, default=0,
+                        help="anchors sampled into the RPN loss per "
+                             "image (reference 256)")
+    parser.add_argument("--rpn_pos", type=int, default=0,
+                        help="positive-anchor cap within --rpn_batch "
+                             "(reference 128)")
+    parser.add_argument("--stem_s2d", action="store_true",
+                        help="recorded in the sidecar; the port computes "
+                             "the same stem either way")
+
+
+def apply_train_shape_flags(mcfg: ModelConfig, args) -> ModelConfig:
+    """Apply add_train_shape_flags' values onto a ModelConfig."""
+    kw = {}
+    if getattr(args, "anchor_sizes", None):
+        kw["anchor_sizes"] = tuple(
+            int(s) for s in args.anchor_sizes.split(","))
+    if getattr(args, "anchor_ratios", None):
+        kw["anchor_ratios"] = tuple(
+            float(s) for s in args.anchor_ratios.split(","))
+    if getattr(args, "train_topk", 0):
+        kw["train_pre_topk"] = args.train_topk
+    if getattr(args, "train_samples", 0):
+        kw["train_num_samples"] = args.train_samples
+    if getattr(args, "rpn_batch", 0):
+        kw["rpn_batch_per_image"] = args.rpn_batch
+    if getattr(args, "rpn_pos", 0):
+        kw["rpn_pos_per_image"] = args.rpn_pos
+    if getattr(args, "stem_s2d", False):
+        kw["stem_s2d"] = True
+    return dataclasses.replace(mcfg, **kw) if kw else mcfg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -329,10 +376,36 @@ class TransferConfig:
         return int(self.rpn_batch * self.rpn_pos_fraction)
 
 
-@dataclasses.dataclass(frozen=True)
-class Config:
-    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
-    tile: TileConfig = dataclasses.field(default_factory=TileConfig)
+MODEL_TYPES = {"custom": ModelConfig, "transfer": TransferConfig}
+
+
+def model_type(cfg) -> str:
+    """"custom" for a ModelConfig, "transfer" for a TransferConfig."""
+    return next(k for k, t in MODEL_TYPES.items() if isinstance(cfg, t))
+
+
+def config_to_dict(cfg) -> dict:
+    """The checkpoint sidecar of a ModelConfig or a TransferConfig: its
+    fields (tuples as lists) and its `model_type`. A custom sidecar is
+    the JAX package's format, which its reader takes (it skips the key
+    it does not know)."""
+    d = dataclasses.asdict(cfg)
+    return {"model_type": model_type(cfg), **{
+        k: list(v) if isinstance(v, tuple) else v for k, v in d.items()}}
+
+
+def config_from_dict(d: dict):
+    """(model_type, config) of a sidecar. One without `model_type` (the
+    JAX package's, and the port's before it recorded one) is custom."""
+    kind = d.get("model_type", "custom")
+    if kind == "custom":
+        return kind, model_config_from_dict(d)
+    if kind not in MODEL_TYPES:
+        raise ValueError(f"unknown model_type {kind!r}")
+    fields = {f.name for f in dataclasses.fields(TransferConfig)}
+    return kind, TransferConfig(**{
+        k: tuple(v) if isinstance(v, list) else v
+        for k, v in d.items() if k in fields})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -366,3 +439,15 @@ class TransferTrainConfig:
     momentum: float = 0.9
     weight_decay: float = 5e-4
     seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    transfer: TransferTrainConfig = dataclasses.field(
+        default_factory=TransferTrainConfig)
+    tile: TileConfig = dataclasses.field(default_factory=TileConfig)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)

@@ -1,6 +1,8 @@
 """A split resident on the card, with the batch gathered there
 (counterpart of livecell_tpu/data/device_data.py: DeviceDataset,
-epoch_indices, make_epoch_train_fn, make_indexed_eval_step).
+epoch_indices, make_epoch_train_fn, make_indexed_eval_step). The
+trainers' epoch plan lives here too: `epoch_indices` for the batches,
+`epoch_generator` for the sampling uniforms.
 
 The split's arrays go to device memory once; every step then gathers
 its batch by index on the card, and an epoch fetches its metrics from
@@ -65,6 +67,14 @@ def epoch_indices(n: int, batch_size: int, shuffle: bool = True,
     return order[:steps * batch_size].reshape(steps, batch_size)
 
 
+def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
+    """The generator of one epoch's sampling uniforms, on `device`,
+    seeded from (seed, epoch) alone: a run resumed at `epoch` draws what
+    a straight run draws there."""
+    state = np.random.SeedSequence([seed, epoch]).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
 def train_epoch(model, opt, pool: DeviceDataset, idx_mat,
                 generator=None) -> Dict[str, np.ndarray]:
     """One epoch of `make_step_fn(model, opt)` steps over the batches
@@ -78,6 +88,12 @@ def train_epoch(model, opt, pool: DeviceDataset, idx_mat,
     for i in range(idx.shape[0]):
         images, targets = pool.batch(idx[i])
         rows.append(step(images, targets, generator=generator))
+    return fetch_metrics(rows)
+
+
+def fetch_metrics(rows) -> Dict[str, np.ndarray]:
+    """Steps' metric dicts of device scalars -> {name: [S] float array},
+    in one copy from the device."""
     names = list(rows[0])
     table = torch.stack([torch.stack([r[k].float() for k in names])
                          for r in rows]).cpu().numpy()

@@ -15,7 +15,7 @@ random draws are explicit uniforms (`sampling_noise`).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -334,3 +334,25 @@ def create_model(cfg: ModelConfig,
         if isinstance(m, nn.BatchNorm2d):
             m.float()
     return model.eval()
+
+
+def count_parameters(model: nn.Module) -> Dict[str, Any]:
+    """Per-subsystem parameter counts (the JAX package's
+    count_parameters, same keys): parameters only, not batch norm's
+    running statistics."""
+    groups = {"backbone": 0, "cbam": 0, "fpn": 0, "rpn": 0, "box_head": 0,
+              "mask_head": 0, "roi_align": 0}
+    total = 0
+    for name, p in model.named_parameters():
+        n = p.numel()
+        total += n
+        for g in groups:
+            if g in name:
+                groups[g] += n
+                break
+    custom = total - groups["backbone"]
+    return {
+        "total": total, **groups, "custom": custom,
+        "custom_percentage": 100.0 * custom / total if total else 0.0,
+        "memory_mb": total * 4 / (1024 ** 2),
+    }

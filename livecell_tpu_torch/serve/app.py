@@ -2,11 +2,12 @@
 InferenceEngine, and of serve/visualize.py:load_model).
 
 Tile-sized inputs run one forward; frame-sized inputs are cut into the
-standard 5x5 overlapping tiles, run as one batch and stitched. A port
-checkpoint is a directory holding `model.pt` (a `torch.save`d state
-dict) and the `model_config.json` sidecar, the JAX package's format
-(train/checkpoint.py writes both, with the optimizer's state beside
-them in a training checkpoint).
+standard 5x5 overlapping tiles, run as one batch and stitched. Either
+model is served: the custom Mask R-CNN or the transfer R50-FPN, as the
+checkpoint records. A port checkpoint is a directory holding `model.pt`
+(a `torch.save`d state dict) and the `model_config.json` sidecar with
+its `model_type` (train/checkpoint.py writes both, with the optimizer's
+state beside them in a training checkpoint).
 """
 
 from __future__ import annotations
@@ -15,25 +16,32 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from livecell_tpu_torch.config import Config, TileConfig, apply_dense_flags
+from livecell_tpu_torch.config import model_type as type_of
 from livecell_tpu_torch.device import resolve_device
-from livecell_tpu_torch.models.mask_rcnn import CustomMaskRCNN, create_model
+from livecell_tpu_torch.models.mask_rcnn import create_model
+from livecell_tpu_torch.models.transfer import create_transfer_model
 from livecell_tpu_torch.ops.mask_ops import paste_masks
-from livecell_tpu_torch.serve.stitch import make_frame_predictor, tile_position
+from livecell_tpu_torch.serve.stitch import (
+    input_tile, make_frame_predictor, tile_position)
 from livecell_tpu_torch.train import checkpoint
 
 
-def save_model(model: CustomMaskRCNN, path: str) -> None:
-    """Write a port checkpoint directory (the model only)."""
+def save_model(model: nn.Module, path: str) -> None:
+    """Write a port checkpoint directory (the model only) of either
+    model."""
     checkpoint.save(path, model)
 
 
-def load_model(path: str, device=None) -> CustomMaskRCNN:
+def load_model(path: str, device=None) -> nn.Module:
     """Load a port checkpoint directory onto `device` (the card unless
-    the caller passes "cpu")."""
-    cfg, sd = checkpoint.load_model_state(path, device)
-    model = create_model(cfg, device=device)
+    the caller passes "cpu") as the serving model of the type it
+    records."""
+    kind, cfg, sd = checkpoint.load_model_state(path, device)
+    build = create_model if kind == "custom" else create_transfer_model
+    model = build(cfg, device=device)
     model.load_state_dict(sd, strict=True)
     return model
 
@@ -41,12 +49,15 @@ def load_model(path: str, device=None) -> CustomMaskRCNN:
 class InferenceEngine:
     """A model and its frame predictor, held for many requests.
 
-    Pass a checkpoint directory (`model_path`) or a built `model`; the
-    engine owns the model and applies the dense-scene flags to its
-    detection settings. Runs on the card unless `device="cpu"`."""
+    Pass a checkpoint directory (`model_path`) or a built `model` of
+    either type; a `model_type` that disagrees with it raises. The dense
+    flags (`dets`, `infer_nms`, `det_nms`) change a custom model's
+    detection settings; a transfer model has none of them, so non-zero
+    values raise. Runs on the card unless `device="cpu"`."""
 
     def __init__(self, model_path: Optional[str] = None, *,
-                 model: Optional[CustomMaskRCNN] = None, dets: int = 0,
+                 model_type: Optional[str] = None,
+                 model: Optional[nn.Module] = None, dets: int = 0,
                  infer_nms: float = 0.0, det_nms: float = 0.0,
                  tile_cfg: Optional[TileConfig] = None, device=None):
         if (model_path is None) == (model is None):
@@ -54,8 +65,18 @@ class InferenceEngine:
         self.device = resolve_device(device)
         if model is None:
             model = load_model(model_path, self.device)
+        kind = type_of(model.cfg)
+        if model_type is not None and model_type != kind:
+            raise ValueError(f"model_type {model_type!r}, but the model is "
+                             f"{kind!r}")
+        self.model_type = kind
         model = model.to(self.device).eval()
-        model.cfg = apply_dense_flags(model.cfg, dets, infer_nms, det_nms)
+        if kind == "custom":
+            model.cfg = apply_dense_flags(model.cfg, dets, infer_nms,
+                                          det_nms)
+        elif dets or infer_nms or det_nms:
+            raise ValueError("dets, infer_nms and det_nms apply to the "
+                             "custom model only")
         self.model = model
         self.cfg = Config(model=model.cfg, tile=tile_cfg or TileConfig())
         # score_threshold 0 here: each request filters with its own.
@@ -67,7 +88,7 @@ class InferenceEngine:
     def predict(self, image: np.ndarray, score_threshold: float = 0.5
                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """image uint8 [H, W, 3] -> (boxes, scores, masks [N, H, W] bool)."""
-        tcfg, mcfg = self.cfg.tile, self.cfg.model
+        tcfg = self.cfg.tile
         h, w = image.shape[:2]
 
         if h >= tcfg.frame_height * 0.9 and w >= tcfg.frame_width * 0.9:
@@ -92,18 +113,17 @@ class InferenceEngine:
                 masks[i, oy:y1, ox:x1] = m[:y1 - oy, :x1 - ox]
             return dets.boxes[keep], dets.scores[keep], masks
 
-        # Tile-sized: pad/crop into the static input and run one forward.
-        canvas = np.zeros((mcfg.image_height, mcfg.image_width, 3),
-                          np.float32)
-        ch = min(h, mcfg.image_height)
-        cw = min(w, mcfg.image_width)
+        # Tile-sized: pad/crop into the model's input tile and run one
+        # forward.
+        ih, iw = input_tile(self.cfg.model)
+        canvas = np.zeros((ih, iw, 3), np.float32)
+        ch, cw = min(h, ih), min(w, iw)
         canvas[:ch, :cw] = image[:ch, :cw].astype(np.float32) / 255.0
         det = self.model.inference_forward(
             torch.from_numpy(canvas)[None].to(self.device))
         keep = det.valid[0] & (det.scores[0] > score_threshold)
-        masks_full = paste_masks(
-            det.mask_probs[0], det.boxes[0],
-            (mcfg.image_height, mcfg.image_width), valid=keep)
+        masks_full = paste_masks(det.mask_probs[0], det.boxes[0], (ih, iw),
+                                 valid=keep)
         keep_np = keep.cpu().numpy()
         masks = masks_full.cpu().numpy()[keep_np][:, :h, :w] > 0
         return (det.boxes[0].cpu().numpy()[keep_np],

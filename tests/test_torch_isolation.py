@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no module of livecell_tpu_torch/ and
-not chip_smoke.py imports JAX, its libraries or the JAX package, and
+not chip_smoke.py or cli_seed_spread.py imports JAX, its libraries or the JAX package, and
 none imports PIL when it is imported (the card's machine has no PIL)."""
 
 import ast
@@ -12,7 +12,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex",
              "livecell_tpu")
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "livecell_tpu_torch").rglob("*.py")) + [
-    "chip_smoke.py"]
+    "chip_smoke.py", "cli_seed_spread.py"]
 
 
 def imported_modules(path: Path):
