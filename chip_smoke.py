@@ -116,14 +116,42 @@ Phases, each fatal on failure (non-zero exit, no result line):
      1 and moved by stage 2, a checkpoint that names the transfer model
      and serves a frame and a 300x222 tile (K5 twice each), test mask
      AP50 >= 0.5; prints each stage's epoch seconds and img/s and the
-     test mask and box AP/AP50/AP75.
+     test mask and box AP/AP50/AP75;
+ 17. serve front ends: a 15-frame "sparse" test split (375 tiles), its
+     frames' polygon annotations kept, through the visualize CLI's own
+     stages (serve/visualize.py:frame_stages: tiles decoded by
+     load_tiles, both trained checkpoints of phases 15 and 16 through
+     their frame predictors' pinned, non-blocking dispatch and fetch)
+     driven by serve/pipeline.py:run_pipelined, with a consume that
+     builds the panels with numpy only (GT overlay, both models'
+     prediction overlays, composited over reconstruct_full_image; PIL
+     and matplotlib are not on the card's machine): load_tiles equal to
+     the drawn tiles and the reconstructed frame to the drawn frame bit
+     for bit, pipelined detections equal to each predictor's serial
+     run() bit for bit, no frame lost or failed, K1/K2 once per custom
+     RoIAlign pass (two with decode_proposals) and K5 twice per
+     transfer frame, K1/K2 and K5 against their plain versions on the
+     first frame's inputs, stitched-frame box F1 (train/metrics.py,
+     IoU 0.5) >= 0.5 for both models; the explainer's capture
+     (serve/explain.py) on three tiles with the custom checkpoint in
+     f32, roi_backend "kernel" and "plain": twelve finite stages,
+     importance summing to 100, the ten stages before the heads equal,
+     the heads within 1e-3 of their magnitude, K1/K2 per tile as
+     above; no frame's dispatch makes a synchronizing call
+     (torch.cuda.set_sync_debug_mode "error"). Prints per-frame decode,
+     device and overlay ms, pipelined frames/s against the serial sum,
+     how long dispatch holds the host against a frame's device time
+     (and a pageable copy's dispatch against the pinned one behind 50
+     ms of queued device work), launches per frame and tile, and the F1
+     values, with the card's name and power limit.
 
 Each phase prints its seconds. Prints the kernels' JSON line, then as
 the last line {"ok": true, "device": {...}}. Writes nothing outside the
 checkout but, under $TMPDIR, a temporary checkpoint, the split of
-phases 13-14 and the splits and working directories of phases 15 and
-16, each removed when its phase ends; the kernels build into a
-directory inside the package.
+phases 13-14, the splits and working directories of phases 15 and 16,
+each removed when its phase ends, the split of phase 17 and copies of
+the two trained checkpoints, removed when phase 17 ends; the kernels
+build into a directory inside the package.
 """
 
 from __future__ import annotations
@@ -132,6 +160,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1015,11 +1044,13 @@ def transfer_boxes(b: int, k: int, gen: torch.Generator) -> torch.Tensor:
 
 
 def ms_roi_cases(cms, feats: list, boxes: torch.Tensor, out_size: int,
-                 label: str, time_plain: bool = True) -> list:
-    """K5 and K6 against their plain versions on one pyramid and one box
-    set, checked and timed. Bound: K5 moves its output, the boxes and
-    levels, and every feature pixel a tap touches once; K6 reads g, the
-    boxes and levels and writes the four maps' gradients whole."""
+                 label: str, time_plain: bool = True,
+                 backward: bool = True) -> list:
+    """K5 and (with `backward`) K6 against their plain versions on one
+    pyramid and one box set, checked and timed. Bound: K5 moves its
+    output, the boxes and levels, and every feature pixel a tap touches
+    once; K6 reads g, the boxes and levels and writes the four maps'
+    gradients whole."""
     dtype = feats[0].dtype
     esz = feats[0].element_size()
     b, k = boxes.shape[:2]
@@ -1038,36 +1069,18 @@ def ms_roi_cases(cms, feats: list, boxes: torch.Tensor, out_size: int,
     # rounding: 2 bf16 ulps at the magnitude; f32 reassociation, 1e-5.
     rel = 2 * 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
     tol5 = rel * max(ref.float().abs().max().item(), 1.0)
-    g = torch.randn(out.shape, device=out.device).to(dtype)
-    dfs = cms.ms_roi_align_bwd(g, boxes, levels, hw)
-    again = cms.ms_roi_align_bwd(g, boxes, levels, hw)
-    drefs = cms.ms_roi_align_bwd_plain(g, boxes, levels, hw)
-    err6 = max((d.float() - r.float()).abs().max().item()
-               for d, r in zip(dfs, drefs))
-    tol6 = min(rel * max(r.float().abs().max().item(), 1.0) for r in drefs)
-    same = all(torch.equal(d, e) for d, e in zip(dfs, again))
     per_level = [int((levels == i).sum()) for i in range(4)]
-    # A level without ROIs gets an all-zero gradient.
-    empty_zero = all(not bool(d.any()) for d, n in zip(dfs, per_level)
-                     if n == 0)
-    spans = spans_check(
-        cms.ms_roi_spans(boxes, levels, hw, out_size, 2, dtype),
-        cms.ms_roi_spans_plain(boxes, levels, hw, out_size, 2, dtype))
-    blocks = cms.ms_roi_align_bwd_blocks_per_sm(dtype)
-    torch.cuda.synchronize()
     name = f"{label} B={b} K={k} s={out_size} {str(dtype).split('.')[-1]}"
     log(f"[kernels] {name} ROIs per level {per_level}: K5 max_err "
         f"{err5:.3g} (tol {tol5:.3g}), equal to plain {exact5}, two calls "
-        f"equal {same5}, blocks/SM {blocks5}; K6 max_err {err6:.3g} (tol "
-        f"{tol6:.3g}); K6 {json.dumps(spans)}; two calls equal {same}; "
-        f"empty levels zero {empty_zero}; blocks/SM {blocks}")
+        f"equal {same5}, blocks/SM {blocks5}")
     if not (err5 <= tol5 and same5 and blocks5 >= 2
             and (exact5 or dtype != torch.bfloat16)):
         raise AssertionError(f"K5 disagrees with plain at {name}")
-    if not (err6 <= tol6 and same and empty_zero and spans["spans_cover"]
-            and blocks >= 2):
-        raise AssertionError(f"K6 disagrees with plain at {name}")
-    del out, ref, dfs, drefs, again
+    if backward:
+        g, same, empty_zero, spans, blocks, err6, tol6 = ms_roi_bwd_check(
+            cms, out, boxes, levels, hw, out_size, per_level, name)
+    del out, ref
 
     # What these inputs need: each level's weights (zero for the other
     # levels' ROIs), their non-zero taps and the pixels they touch.
@@ -1088,22 +1101,24 @@ def ms_roi_cases(cms, feats: list, boxes: torch.Tensor, out_size: int,
         b * h * w * C * esz for h, w in hw)
     shape = dict(B=b, K=k, s=out_size, C=C, dtype=str(dtype), case=label,
                  rois_per_level=per_level)
+    runs = [("ms_roi_align_fwd",
+             lambda: cms.ms_roi_align_fwd(feats, boxes, levels, out_size),
+             lambda: cms.ms_roi_align_fwd_plain(feats, boxes, levels,
+                                                out_size),
+             bytes5, ops5, err5, tol5, ("ms_roi_align_fwd_kernel",),
+             dict(two_calls_equal=same5, equal_to_plain=exact5,
+                  blocks_per_sm=blocks5))]
+    if backward:
+        runs.append((
+            "ms_roi_align_bwd",
+            lambda: cms.ms_roi_align_bwd(g, boxes, levels, hw),
+            lambda: cms.ms_roi_align_bwd_plain(g, boxes, levels, hw),
+            bytes6, ops6, err6, tol6,
+            ("ms_roi_spans_kernel", "ms_roi_align_bwd_kernel"),
+            dict(two_calls_equal=same, empty_levels_zero=empty_zero,
+                 blocks_per_sm=blocks, **spans)))
     cases = []
-    for kname, fn, plain, nbytes, ops, err, tol, launched, extra in (
-        ("ms_roi_align_fwd",
-         lambda: cms.ms_roi_align_fwd(feats, boxes, levels, out_size),
-         lambda: cms.ms_roi_align_fwd_plain(feats, boxes, levels, out_size),
-         bytes5, ops5, err5, tol5, ("ms_roi_align_fwd_kernel",),
-         dict(two_calls_equal=same5, equal_to_plain=exact5,
-              blocks_per_sm=blocks5)),
-        ("ms_roi_align_bwd",
-         lambda: cms.ms_roi_align_bwd(g, boxes, levels, hw),
-         lambda: cms.ms_roi_align_bwd_plain(g, boxes, levels, hw),
-         bytes6, ops6, err6, tol6,
-         ("ms_roi_spans_kernel", "ms_roi_align_bwd_kernel"),
-         dict(two_calls_equal=same, empty_levels_zero=empty_zero,
-              blocks_per_sm=blocks, **spans)),
-    ):
+    for kname, fn, plain, nbytes, ops, err, tol, launched, extra in runs:
         bms, bby = bound(nbytes, ops)
         cases.append(dict(
             name=kname, shape=shape, max_err=err, tol=tol,
@@ -1116,6 +1131,40 @@ def ms_roi_cases(cms, feats: list, boxes: torch.Tensor, out_size: int,
             **extra))
         torch.cuda.empty_cache()
     return cases
+
+
+def ms_roi_bwd_check(cms, out, boxes, levels, hw, out_size, per_level,
+                     name):
+    """K6 against its plain version on a random gradient of K5's output
+    `out`: within two bf16 ulps (1e-5 in f32) of the smallest level
+    gradient's magnitude, two calls equal, levels without ROIs all-zero,
+    the spans pre-pass covering the plain spans. Returns (g, two calls
+    equal, empty levels zero, spans, blocks/SM, max err, tol)."""
+    dtype = out.dtype
+    rel = 2 * 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    g = torch.randn(out.shape, device=out.device).to(dtype)
+    dfs = cms.ms_roi_align_bwd(g, boxes, levels, hw)
+    again = cms.ms_roi_align_bwd(g, boxes, levels, hw)
+    drefs = cms.ms_roi_align_bwd_plain(g, boxes, levels, hw)
+    err6 = max((d.float() - r.float()).abs().max().item()
+               for d, r in zip(dfs, drefs))
+    tol6 = min(rel * max(r.float().abs().max().item(), 1.0) for r in drefs)
+    same = all(torch.equal(d, e) for d, e in zip(dfs, again))
+    # A level without ROIs gets an all-zero gradient.
+    empty_zero = all(not bool(d.any()) for d, n in zip(dfs, per_level)
+                     if n == 0)
+    spans = spans_check(
+        cms.ms_roi_spans(boxes, levels, hw, out_size, 2, dtype),
+        cms.ms_roi_spans_plain(boxes, levels, hw, out_size, 2, dtype))
+    blocks = cms.ms_roi_align_bwd_blocks_per_sm(dtype)
+    torch.cuda.synchronize()
+    log(f"[kernels] {name}: K6 max_err {err6:.3g} (tol {tol6:.3g}); K6 "
+        f"{json.dumps(spans)}; two calls equal {same}; empty levels zero "
+        f"{empty_zero}; blocks/SM {blocks}")
+    if not (err6 <= tol6 and same and empty_zero and spans["spans_cover"]
+            and blocks >= 2):
+        raise AssertionError(f"K6 disagrees with plain at {name}")
+    return g, same, empty_zero, spans, blocks, err6, tol6
 
 
 def transfer_gt(b: int, slots: int, rng: np.random.Generator):
@@ -1459,7 +1508,8 @@ def draw_split(root, seed: int, mode: str = "livecell",
     the splits of a tiled tree under `root`: `frames` gives each split's
     frame count. `mode` "livecell": LIVECell's statistics, cells 120-220
     on 30 with noise of sigma 8; "sparse": 12 ellipses a frame, 120-220
-    on 30, no noise. Returns {split: [frames]}."""
+    on 30, no noise. Returns {split: {"frames": [grey frames],
+    "annotations": [each frame's polygon annotations]}}."""
     from livecell_tpu_torch.data.coco import polygons_to_mask
     from livecell_tpu_torch.data.tiling import TILES_PER_IMAGE, tile_frame
 
@@ -1467,7 +1517,7 @@ def draw_split(root, seed: int, mode: str = "livecell",
     out = {}
     (root / "annotations").mkdir(parents=True)
     for split, n_frames in frames:
-        drawn, images, tile_anns = [], [], []
+        drawn, frame_anns, images, tile_anns = [], [], [], []
         ann_id = 0
         for i in range(n_frames):
             canvas = np.full((FRAME_H, FRAME_W), 30.0)
@@ -1494,6 +1544,7 @@ def draw_split(root, seed: int, mode: str = "livecell",
                 canvas += rng.normal(0.0, 8.0, canvas.shape)
             frame = np.clip(np.rint(canvas), 0, 255).astype(np.uint8)
             drawn.append(frame)
+            frame_anns.append(anns)
             info = {"id": i + 1,
                     "file_name": f"A172_Phase_{split}_{i:03d}.tif",
                     "width": FRAME_W, "height": FRAME_H}
@@ -1506,7 +1557,7 @@ def draw_split(root, seed: int, mode: str = "livecell",
                   "w") as f:
             f.write(json.dumps({"images": images, "annotations": tile_anns,
                                 "categories": [{"id": 1, "name": "cell"}]}))
-        out[split] = drawn
+        out[split] = {"frames": drawn, "annotations": frame_anns}
     return out
 
 
@@ -1528,7 +1579,7 @@ def phase_data(root) -> tuple:
     if native.backend() != "cpp":
         raise AssertionError("data: the C++ rasterizer did not build")
     t0 = time.perf_counter()
-    frames = draw_split(root, SEED + 13)["test"]
+    frames = draw_split(root, SEED + 13)["test"]["frames"]
     draw_s = time.perf_counter() - t0
 
     # The mask-target precompute, timed by CUDA events around it (the
@@ -2050,6 +2101,7 @@ def phase_custom_cli(root, frame: np.ndarray) -> dict:
                                   ("roi_weights", "roi_align_fwd")},
                           {"roi_weights": per_fwd, "roi_align_fwd": per_fwd})
     res["served"] = served
+    res["model_path"] = out_path
     if not ap["AP50"] >= MIN_TEST_MASK_AP50:
         raise AssertionError(f"custom cli: test mask AP50 {ap['AP50']:.4f} "
                              f"< {MIN_TEST_MASK_AP50}")
@@ -2158,6 +2210,341 @@ def phase_transfer_cli(root, frame: np.ndarray) -> dict:
         raise AssertionError(f"transfer cli: test mask AP50 "
                              f"{aps['segm']['AP50']:.4f} < "
                              f"{MIN_TEST_MASK_AP50}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# The serve front ends (phase 17).
+# ---------------------------------------------------------------------------
+# A test split of 15 "sparse" frames (375 tiles), the size of phase 13's.
+FRONT_FRAMES = 15
+MIN_FRAME_F1 = 0.5
+# Explain main's picks on a 375-tile split: the first, middle and last
+# tile (frame, tile number).
+EXPLAIN_TILES = ((0, 0), (7, 12), (14, 24))
+
+
+def frame_f1(results: list, annotations: list) -> dict:
+    """Box metrics (train/metrics.py) of stitched frame detections against
+    each frame's GT boxes, matched at IoU 0.5."""
+    from livecell_tpu_torch.models.detector import Detections
+    from livecell_tpu_torch.train.metrics import (
+        MetricAccumulator, batch_eval_stats)
+    acc = MetricAccumulator()
+    for dets, anns in zip(results, annotations):
+        n = len(dets.scores)
+        gt = np.asarray([[a["bbox"][0], a["bbox"][1],
+                          a["bbox"][0] + a["bbox"][2],
+                          a["bbox"][1] + a["bbox"][3]] for a in anns],
+                        np.float32)
+        det = Detections(
+            boxes=torch.from_numpy(dets.boxes.astype(np.float32))[None],
+            scores=torch.from_numpy(dets.scores.astype(np.float32))[None],
+            labels=torch.ones((1, n), dtype=torch.int32),
+            valid=torch.ones((1, n), dtype=torch.bool),
+            mask_probs=torch.zeros((1, n, 28, 28)))
+        acc.update(batch_eval_stats(det, torch.from_numpy(gt)[None],
+                                    torch.ones((1, len(gt)), dtype=bool),
+                                    torch.ones(1, dtype=bool)))
+    return acc.summary()
+
+
+def explain_tiles(path: str, tiles: list, smi: str) -> dict:
+    """The explainer's capture (serve/explain.py) on `tiles` with the
+    trained custom checkpoint in f32, with roi_backend "kernel" and
+    "plain": all twelve stages captured and finite, importance summing
+    to 100; the ten stages before the heads equal (the RoIAlign route
+    does not reach them), the heads within 1e-3 of their largest
+    magnitude; K1/K2 launched once per RoIAlign pass of a tile on the
+    kernel route."""
+    from livecell_tpu_torch.models.mask_rcnn import create_model
+    from livecell_tpu_torch.ops import cuda_roi_align as cra
+    from livecell_tpu_torch.serve import explain
+    from livecell_tpu_torch.serve.stitch import input_tile
+    from livecell_tpu_torch.train import checkpoint
+
+    _, cfg, sd = checkpoint.load_model_state(path)
+    counters = {"roi_weights": cra.roi_weights,
+                "roi_align_fwd": cra.roi_align_fwd}
+    per_fwd = 2 if cfg.decode_proposals else 1
+    ih, iw = input_tile(cfg)
+    heads = ("box_head", "mask_head")
+    res = []
+    models = {}
+    for route in ("kernel", "plain"):
+        models[route] = create_model(dataclasses.replace(
+            cfg, compute_dtype="float32", roi_backend=route))
+        models[route].load_state_dict(sd)
+    for k, tile in enumerate(tiles):
+        canvas = np.zeros((ih, iw, 3), np.float32)
+        canvas[:tile.shape[0], :tile.shape[1]] = tile / 255.0
+        acts, launches = {}, {}
+        for route, model in models.items():
+            for c in counters.values():
+                c.launches = 0
+            det, acts[route] = explain.capture_activations(model, canvas)
+            torch.cuda.synchronize()
+            launches[route] = {n: c.launches for n, c in counters.items()}
+        imp = explain.importance_percentages(acts["kernel"])
+        props = explain.top_rpn_proposals(acts["kernel"], cfg)
+        diffs = {n: float(np.abs(acts["kernel"][n] - acts["plain"][n]).max())
+                 / max(float(np.abs(acts["plain"][n]).max()), 1e-30)
+                 for n, _ in explain.STAGE_KEYS}
+        equal = [n for n, _ in explain.STAGE_KEYS if n not in heads and
+                 np.array_equal(acts["kernel"][n], acts["plain"][n])]
+        r = dict(tile=k, stages=sorted(n for n, v in acts["kernel"].items()
+                                       if v is not None),
+                 importance_sum=sum(imp.values()),
+                 relative_diff=diffs, equal_bit_for_bit=equal,
+                 proposals=len(props), launches=launches,
+                 detections=int((det.valid[0] & (det.scores[0] > 0.5))
+                                .sum()))
+        res.append(r)
+        log(f"[explain] {smi} | {json.dumps(r)}")
+        ok = (len(r["stages"]) == 12
+              and all(np.isfinite(v).all() for v in acts["kernel"].values())
+              and abs(r["importance_sum"] - 100.0) < 1e-3
+              and all(diffs[n] <= 1e-6 for n, _ in explain.STAGE_KEYS
+                      if n not in heads)
+              and all(diffs[n] <= 1e-3 for n in heads)
+              and launches["kernel"] == {n: per_fwd for n in counters}
+              and launches["plain"] == {n: 0 for n in counters}
+              and len(props) == 50)
+        if not ok:
+            raise AssertionError(f"explain tile {k}: {r}")
+    if any(len(r["equal_bit_for_bit"]) < 10 for r in res):
+        log("[explain] the stages before the heads differ between the two "
+            "routes' models (within 1e-6): cuDNN varied between calls")
+    del models
+    torch.cuda.empty_cache()
+    return dict(tiles=res, launches_per_tile={
+        n: res[0]["launches"]["kernel"][n] for n in counters})
+
+
+def phase_serve_fronts(root, ckpts: dict, smi: str) -> dict:
+    """17. The visualize CLI's frame loop (serve/visualize.py:frame_stages
+    through serve/pipeline.py:run_pipelined with fetch) over a 15-frame
+    "sparse" test split with the checkpoints phases 15 and 16 trained
+    (model 1 custom, model 2 transfer), its panels built with numpy only
+    (GT and prediction overlays composited over the reconstructed
+    frame; PIL and matplotlib are not on this machine): load_tiles and
+    reconstruct_full_image equal to the drawn frames, pipelined
+    detections equal to each predictor's serial run bit for bit, K1/K2
+    once per custom RoIAlign pass and K5 twice per transfer frame, K1/K2
+    and K5 against their plain versions on the first frame's inputs,
+    stitched-frame box F1 >= MIN_FRAME_F1 for both models, a dispatch of
+    each model free of synchronizing calls; the explainer on three tiles
+    (explain_tiles)."""
+    from livecell_tpu_torch.config import ModelConfig, TileConfig
+    from livecell_tpu_torch.ops import cuda_ms_roi_align as cms
+    from livecell_tpu_torch.ops import cuda_roi_align as cra
+    from livecell_tpu_torch.serve import render, visualize
+    from livecell_tpu_torch.serve.pipeline import run_pipelined
+    from livecell_tpu_torch.serve.stitch import (
+        group_tiles_by_image, make_frame_predictor, reconstruct_full_image)
+
+    t0 = time.perf_counter()
+    drawn = draw_split(root / "split", SEED + 17, "sparse",
+                       (("test", FRONT_FRAMES),))["test"]
+    draw_s = time.perf_counter() - t0
+    tcfg = TileConfig()
+    frame_hw = (tcfg.frame_height, tcfg.frame_width)
+    groups = group_tiles_by_image(str(root / "split" / "test" / "images"))
+    names = sorted(groups)
+    frame_of = {n: i for i, n in enumerate(names)}
+    if len(names) != FRONT_FRAMES:
+        raise AssertionError(f"serve fronts: {len(names)} frames grouped")
+    # The CLI's defaults: no dense flags.
+    mcfg = ModelConfig()
+    models = [visualize.load_model(ckpts["custom"], "custom", mcfg=mcfg),
+              visualize.load_model(ckpts["transfer"], "transfer", mcfg=mcfg)]
+    per_fwd = 2 if models[0].cfg.decode_proposals else 1
+    preds = [make_frame_predictor(m, tcfg, 0.5, 0.4) for m in models]
+    st = visualize.frame_stages(preds, ["custom", "transfer"], tcfg, {}, {})
+
+    # Each kernel's inputs from the first frame: two RoIAlign passes each.
+    counters = {"roi_weights": cra.roi_weights,
+                "roi_align_fwd": cra.roi_align_fwd,
+                "ms_roi_align_fwd": cms.ms_roi_align_fwd}
+    rec = {k: Recorder(fn, 2) for k, fn in counters.items()}
+    dispatch_ms = []
+
+    def dispatch(decoded):
+        if not dispatch_ms:
+            for r in rec.values():
+                r.scope = "frame"
+        t = time.perf_counter()
+        handles = st.dispatch(decoded)
+        dispatch_ms.append((time.perf_counter() - t) * 1e3)
+        for r in rec.values():
+            r.scope = None
+        return handles
+
+    checks = {}
+
+    def consume(item, decoded, results):
+        name, _ = item
+        tiles, _, _ = decoded
+        i = frame_of[name]
+        grey = drawn["frames"][i]
+        want_tiles = frame_tiles(np.repeat(grey[..., None], 3, axis=2), tcfg)
+        full = reconstruct_full_image(tiles, tcfg)
+        ch = tcfg.mini_tile_height * tcfg.grid_size
+        cw = tcfg.mini_tile_width * tcfg.grid_size
+        base = (np.clip(full, 0, 1) * 255).astype(np.uint8)
+        gt = visualize.decode_gt_masks(drawn["annotations"][i], frame_hw)
+        panels = [render.composite(base, render.instance_overlay(
+            gt, None, frame_hw))]
+        panels += [render.composite(base, visualize.create_mask_overlay(
+            d, frame_hw)) for d in results]
+        checks[name] = dict(
+            tiles_equal=bool(np.array_equal(tiles, want_tiles)),
+            frame_equal=bool(np.array_equal(
+                full[:ch, :cw],
+                np.repeat(grey[:ch, :cw, None], 3, axis=2)
+                .astype(np.float32) / 255.0)),
+            gt_masks=len(gt), results=results,
+            panels_ok=all(p.shape == frame_hw + (3,) for p in panels))
+
+    old_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with patched(cra, {k: rec[k] for k in
+                           ("roi_weights", "roi_align_fwd")}), \
+                patched(cms, {"ms_roi_align_fwd": rec["ms_roi_align_fwd"]}):
+            for c in counters.values():
+                c.launches = 0
+            stats = run_pipelined([(n, groups[n]) for n in names],
+                                  st.decode, dispatch, consume,
+                                  fetch_fn=st.fetch)
+            torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in counters.items()}
+        # Serial: each frame through each predictor's run(), timed.
+        serial, same = [], []
+        for n in names:
+            tiles = st.decode((n, groups[n]))[0]
+            for j, run in enumerate(preds):
+                t = time.perf_counter()
+                dets = run(tiles)
+                serial.append((time.perf_counter() - t) * 1e3)
+                same.append(all(np.array_equal(a, b) for a, b in zip(
+                    dets, checks[n]["results"][j])))
+    finally:
+        torch.backends.cudnn.deterministic = old_det
+
+    f1 = {label: frame_f1([checks[n]["results"][j] for n in names],
+                          [drawn["annotations"][frame_of[n]] for n in names])
+          for j, label in enumerate(("custom", "transfer"))}
+    want = {"roi_weights": per_fwd * FRONT_FRAMES,
+            "roi_align_fwd": per_fwd * FRONT_FRAMES,
+            "ms_roi_align_fwd": 2 * FRONT_FRAMES}
+    d = stats.as_dict()
+    res = dict(draw_and_tile_s=draw_s, frames=stats.frames,
+               errors=[repr(e) for _, e in stats.errors], stages=d,
+               serial_frame_ms=sum(serial) / FRONT_FRAMES,
+               dispatch_ms_median=statistics.median(dispatch_ms),
+               launches=launches,
+               launches_per_frame={k: v / FRONT_FRAMES
+                                   for k, v in launches.items()},
+               pipelined_equals_serial=all(same),
+               tiles_equal=all(c["tiles_equal"] for c in checks.values()),
+               frame_equal=all(c["frame_equal"] for c in checks.values()),
+               panels_ok=all(c["panels_ok"] for c in checks.values()),
+               gt_instances=sum(c["gt_masks"] for c in checks.values()),
+               detections={label: sum(len(checks[n]["results"][j].scores)
+                                      for n in names)
+                           for j, label in enumerate(("custom", "transfer"))},
+               box_f1=f1)
+    log(f"[serve fronts] {smi} | {json.dumps(res)}")
+    if not (stats.frames == FRONT_FRAMES and not stats.errors
+            and res["tiles_equal"] and res["frame_equal"]
+            and res["panels_ok"] and res["pipelined_equals_serial"]
+            and launches == want):
+        raise AssertionError(f"serve fronts: {res}, expected launches {want}")
+    for label in ("custom", "transfer"):
+        if not f1[label]["f1_score"] >= MIN_FRAME_F1:
+            raise AssertionError(f"serve fronts: {label} frame box F1 "
+                                 f"{f1[label]['f1_score']:.4f} < "
+                                 f"{MIN_FRAME_F1}")
+
+    # A frame's device time (profiler), and how long each model's
+    # dispatch holds the host behind ~50 ms of device work already
+    # queued (one spinning kernel, enqueued at once): with a pageable
+    # copy (.to(), which waits for the queued work) against the
+    # predictor's pinned, non-blocking one. Then no dispatch may make a
+    # synchronizing call (torch.cuda.set_sync_debug_mode raises on one).
+    tiles0 = st.decode((names[0], groups[names[0]]))[0]
+    x0 = torch.from_numpy(tiles0).cuda()
+    frame_prof = [profile_call(lambda: run.device_fn(x0)) for run in preds]
+    cycles = 10 ** 7
+    per_ms = cycles / time_ms(lambda: torch.cuda._sleep(cycles), warmup=1,
+                              runs=3, calls=1)
+
+    def queue():
+        torch.cuda._sleep(int(50 * per_ms))
+
+    copy = {"queued_ms": time_ms(queue, warmup=1, runs=3, calls=1)}
+    for label, run in zip(("custom", "transfer"), preds):
+        for kind, fn in (
+                ("pageable", lambda: run.device_fn(
+                    torch.from_numpy(tiles0).to("cuda"))),
+                ("pinned", lambda: run.dispatch(tiles0))):
+            for _ in range(3):
+                torch.cuda.synchronize()
+                queue()
+                t = time.perf_counter()
+                fn()
+                copy.setdefault(f"{label}_{kind}_ms", []).append(
+                    (time.perf_counter() - t) * 1e3)
+                torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            handle = run.dispatch(tiles0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        run.fetch(handle)
+    del x0
+    res.update(frame_profile={"custom": frame_prof[0],
+                              "transfer": frame_prof[1]},
+               dispatch_behind_queued_work=copy)
+    log(f"[serve fronts] {smi} | frame profiles {json.dumps(frame_prof)}")
+    log(f"[serve fronts] {smi} | per frame: decode {d['decode_ms']} ms, "
+        f"device {d['device_ms']} ms, overlay {d['overlay_ms']} ms; "
+        f"pipelined {d['pipelined_fps']} frames/s against a serial sum of "
+        f"{d['serial_sum_ms']} ms (predictors alone, serial: "
+        f"{res['serial_frame_ms']:.2f} ms a frame); dispatch returns in "
+        f"{res['dispatch_ms_median']:.2f} ms (both models), a frame's "
+        f"device busy time {frame_prof[0]['device_busy_ms']:.2f} / "
+        f"{frame_prof[1]['device_busy_ms']:.2f} ms (custom / transfer); "
+        f"dispatch behind queued device work {json.dumps(copy)}; "
+        f"launches per frame {json.dumps(res['launches_per_frame'])}; box "
+        f"F1 {f1['custom']['f1_score']:.4f} / "
+        f"{f1['transfer']['f1_score']:.4f} (custom / transfer)")
+    del models, preds, st, checks
+    torch.cuda.empty_cache()
+
+    # K1/K2 and K5 against their plain versions on the first frame's
+    # inputs (the proposals' pass, then the detections').
+    cases = []
+    for i, (boxes, _, out, ratio, scale, _) in enumerate(
+            rec["roi_weights"].calls["frame"]):
+        feat = rec["roi_align_fwd"].calls["frame"][i][0]
+        cases += k12_cases(cra, feat, boxes, out, ratio, scale,
+                           f"visualize custom frame pass {i + 1}")
+    for feats, boxes, _, out_size, _ in rec["ms_roi_align_fwd"].calls["frame"]:
+        cases += ms_roi_cases(cms, list(feats), boxes, out_size,
+                              "visualize transfer frame", backward=False)
+    for c in cases:
+        log("[kernels]", json.dumps(c))
+    del rec
+    torch.cuda.empty_cache()
+
+    # The explainer: the first, middle and last tile of the split.
+    tiles = [frame_tiles(np.repeat(drawn["frames"][f][..., None], 3,
+                                   axis=2), tcfg)[t]
+             for f, t in EXPLAIN_TILES]
+    res["explain"] = explain_tiles(ckpts["custom"], tiles, smi)
+    res["cases"] = cases
     return res
 
 
@@ -2279,16 +2666,31 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 15.-16. the trainer CLIs, each on its own "sparse" split and from
-    # its own working directory, both removed when the phase ends.
-    with tempfile.TemporaryDirectory() as tmp:
-        with Phase(15, "custom trainer CLI"):
-            cli_custom = phase_custom_cli(Path(tmp), frame)
-    cases += cli_custom["cases"]
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        with Phase(16, "transfer trainer CLI"):
-            cli_transfer = phase_transfer_cli(Path(tmp), frame)
-    torch.cuda.empty_cache()
+    # its own working directory, both removed when the phase ends; their
+    # checkpoints are copied aside for phase 17.
+    # 17. the serve front ends over both trained checkpoints.
+    with tempfile.TemporaryDirectory() as kept:
+        ckpts = {"custom": str(Path(kept) / "custom"),
+                 "transfer": str(Path(kept) / "transfer")}
+        with tempfile.TemporaryDirectory() as tmp:
+            with Phase(15, "custom trainer CLI"):
+                cli_custom = phase_custom_cli(Path(tmp), frame)
+            shutil.copytree(Path(tmp) / cli_custom["model_path"],
+                            ckpts["custom"])
+        cases += cli_custom["cases"]
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            with Phase(16, "transfer trainer CLI"):
+                cli_transfer = phase_transfer_cli(Path(tmp), frame)
+            shutil.copytree(Path(tmp) / "models" /
+                            "maskrcnn_resnet50_two_stage.ckpt",
+                            ckpts["transfer"])
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            with Phase(17, "serve front ends"):
+                fronts = phase_serve_fronts(Path(tmp), ckpts, smi)
+        cases += fronts["cases"]
+        torch.cuda.empty_cache()
 
     # The kernels' line: every kernel's headline case at its training
     # step's shape (K1-K3: B = 32, K = 128 bf16; K4: T2's full form; K5,
@@ -2331,6 +2733,13 @@ def main() -> int:
                 per_path[f"{m} CLI per step"] = r["launches_per_step"][kname]
                 per_path[f"{m} CLI test sweep per batch"] = r[
                     "launches_per_test_batch"][kname]
+        if kname in fronts["launches_per_frame"]:
+            per_path["visualize custom frame" if kname.startswith("roi_")
+                     else "visualize transfer frame"] = fronts[
+                "launches_per_frame"][kname]
+        if kname in fronts["explain"]["launches_per_tile"]:
+            per_path["explain tile"] = fronts["explain"][
+                "launches_per_tile"][kname]
         path = "T3" if kname.startswith("ms_") else "T2"
         kernels.append(dict(
             name=kname, route="cuda",

@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from livecell_tpu_torch.config import ModelConfig
-from livecell_tpu_torch.device import resolve_device
+from livecell_tpu_torch.device import constant, resolve_device
 from livecell_tpu_torch.models.cbam import CBAM
 from livecell_tpu_torch.models.detector import (
     Detections, HeadTargets, box_losses, mask_loss, mask_loss_on,
@@ -265,8 +265,7 @@ class CustomMaskRCNN(nn.Module):
         if c.decode_proposals:
             # Refine with the box head's class-1 deltas, undoing the
             # box-coder weights the targets were scaled by.
-            w = torch.tensor(c.box_reg_weights, dtype=torch.float32,
-                             device=boxes.device)
+            w = constant(tuple(c.box_reg_weights), boxes.device)
             boxes = clip_boxes(decode_boxes(
                 head_deltas.reshape(b, d, -1)[..., 4:8] / w, boxes), img_size)
         keep = (box_scores > c.det_score_thresh) & props.valid

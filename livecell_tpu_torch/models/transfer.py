@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from livecell_tpu_torch.config import TransferConfig
-from livecell_tpu_torch.device import resolve_device
+from livecell_tpu_torch.device import constant, resolve_device
 from livecell_tpu_torch.models.detector import (
     Detections, bce_with_logits, smooth_l1)
 from livecell_tpu_torch.models.fpn import FPN
@@ -113,8 +113,8 @@ def _encode_weighted(boxes: torch.Tensor, anchors: torch.Tensor,
 
 def _decode_weighted(deltas: torch.Tensor, boxes: torch.Tensor,
                      weights: Tuple[float, ...]) -> torch.Tensor:
-    w = torch.tensor(weights, dtype=torch.float32, device=deltas.device)
-    return decode_boxes(deltas / w, boxes)
+    return decode_boxes(deltas / constant(tuple(weights), deltas.device),
+                        boxes)
 
 
 # ---------------------------------------------------------------------------
@@ -337,8 +337,8 @@ class TransferMaskRCNN(nn.Module):
         """GeneralizedRCNNTransform: ImageNet-normalize, resize the tile
         to the canvas (bilinear, f32), zero-pad the width. NHWC f32."""
         c = self.cfg
-        mean = torch.tensor(_MEAN, device=images.device)
-        std = torch.tensor(_STD, device=images.device)
+        mean = constant(_MEAN, images.device)
+        std = constant(_STD, images.device)
         x = resize_bilinear((images.float() - mean) / std,
                             (c.image_height, c.resized_width))
         return F.pad(x, (0, 0, 0, c.image_width - c.resized_width))
@@ -533,8 +533,7 @@ class TransferMaskRCNN(nn.Module):
 
         # Back to tile coordinates (GeneralizedRCNNTransform.postprocess).
         sy, sx = self.scale
-        unscale = torch.tensor([1 / sx, 1 / sy, 1 / sx, 1 / sy],
-                               dtype=torch.float32, device=images.device)
+        unscale = constant((1 / sx, 1 / sy, 1 / sx, 1 / sy), images.device)
         det_boxes = clip_boxes(det_boxes * unscale,
                                (c.tile_height, c.tile_width))
         return Detections(

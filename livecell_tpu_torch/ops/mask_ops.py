@@ -8,6 +8,7 @@ All are two-matrix interpolation resamplings (ops/interp.py) in f32.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -45,6 +46,16 @@ def extract_mask_targets(masks: torch.Tensor, boxes: torch.Tensor,
         return torch.bmm(t, wx.transpose(1, 2))            # [K, m, m]
 
 
+@functools.lru_cache(maxsize=32)
+def _resize_matrix(n_in: int, n_out: int, device: torch.device
+                   ) -> torch.Tensor:
+    """resize_weight_matrix on `device`, copied there once, outside
+    inference mode (see device.constant: a copy in every call would make
+    the host wait for the card)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(resize_weight_matrix(n_in, n_out)).to(device)
+
+
 def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]
                     ) -> torch.Tensor:
     """F.interpolate(mode='bilinear', align_corners=False) for NHWC
@@ -52,8 +63,8 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]
     under autocast, as the JAX package's einsums run at "highest")."""
     h, w = x.shape[-3], x.shape[-2]
     oh, ow = out_hw
-    wy = torch.from_numpy(resize_weight_matrix(h, oh)).to(x.device)
-    wx = torch.from_numpy(resize_weight_matrix(w, ow)).to(x.device)
+    wy = _resize_matrix(h, oh, x.device)
+    wx = _resize_matrix(w, ow, x.device)
     with torch.autocast(x.device.type, enabled=False):
         t = torch.einsum("yh,...hwc->...ywc", wy, x.float())
         out = torch.einsum("xw,...ywc->...yxc", wx, t)

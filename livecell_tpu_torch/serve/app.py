@@ -1,5 +1,6 @@
-"""Single-image inference engine (counterpart of livecell_tpu/serve/app.py:
-InferenceEngine, and of serve/visualize.py:load_model).
+"""Single-image inference server (counterpart of livecell_tpu/serve/app.py:
+InferenceEngine, render_overlay, predict_single_image, launch_gradio,
+launch_http, main).
 
 Tile-sized inputs run one forward; frame-sized inputs are cut into the
 standard 5x5 overlapping tiles, run as one batch and stitched. Either
@@ -8,17 +9,28 @@ checkpoint records. A port checkpoint is a directory holding `model.pt`
 (a `torch.save`d state dict) and the `model_config.json` sidecar with
 its `model_type` (train/checkpoint.py writes both, with the optimizer's
 state beside them in a training checkpoint).
+
+The engine is loaded once and cached across requests. The front end is
+gradio where it is installed, else a stdlib HTTP server (POST an image,
+get back the overlay PNG and the count); PIL, matplotlib and gradio are
+imported only inside the functions that draw or serve.
+
+    python -m livecell_tpu_torch.serve.app --model_path models/custom.ckpt
 """
 
 from __future__ import annotations
 
+import argparse
+import io
+import os
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from livecell_tpu_torch.config import Config, TileConfig, apply_dense_flags
+from livecell_tpu_torch.config import (
+    Config, TileConfig, add_dense_flags, apply_dense_flags)
 from livecell_tpu_torch.config import model_type as type_of
 from livecell_tpu_torch.device import resolve_device
 from livecell_tpu_torch.models.mask_rcnn import create_model
@@ -27,6 +39,8 @@ from livecell_tpu_torch.ops.mask_ops import paste_masks
 from livecell_tpu_torch.serve.stitch import (
     input_tile, make_frame_predictor, tile_position)
 from livecell_tpu_torch.train import checkpoint
+
+DEFAULT_MODEL_PATH = "models/custom_maskrcnn_5epochs.ckpt"
 
 
 def save_model(model: nn.Module, path: str) -> None:
@@ -63,6 +77,7 @@ class InferenceEngine:
         if (model_path is None) == (model is None):
             raise ValueError("pass exactly one of model_path and model")
         self.device = resolve_device(device)
+        self.model_path = model_path
         if model is None:
             model = load_model(model_path, self.device)
         kind = type_of(model.cfg)
@@ -128,3 +143,185 @@ class InferenceEngine:
         masks = masks_full.cpu().numpy()[keep_np][:, :h, :w] > 0
         return (det.boxes[0].cpu().numpy()[keep_np],
                 det.scores[0].cpu().numpy()[keep_np], masks)
+
+
+def render_overlay(image: np.ndarray, boxes, scores, masks) -> np.ndarray:
+    """Colored mask overlay + per-instance score labels as an RGBA image
+    (matplotlib, Agg)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(1, 1, figsize=(12, 10))
+    ax.imshow(image)
+    ax.axis("off")
+    if len(boxes) > 0:
+        h, w = image.shape[:2]
+        overlay = np.zeros((h, w, 4), np.float32)
+        for idx, (mask, score) in enumerate(zip(masks, scores)):
+            color = plt.cm.tab20(idx % 20)
+            overlay[mask, :3] = color[:3]
+            overlay[mask, 3] = 0.5
+            ys, xs = np.nonzero(mask)
+            if len(ys):
+                ax.text(xs.mean(), ys.mean(), f"{score:.2f}", color="white",
+                        fontsize=8, fontweight="bold",
+                        bbox=dict(facecolor="black", alpha=0.5,
+                                  edgecolor="none"))
+        ax.imshow(overlay)
+    fig.canvas.draw()
+    out = np.array(fig.canvas.renderer.buffer_rgba())
+    plt.close(fig)
+    return out
+
+
+_ENGINE: Optional[InferenceEngine] = None
+# The engine's settings from the CLI: the dense-scene overrides
+# (--dets/--infer_nms/--det_nms) and the device, applied when the
+# engine is (re)built.
+_DENSE = {"dets": 0, "infer_nms": 0.0, "det_nms": 0.0, "device": None}
+
+
+def predict_single_image(image: np.ndarray, model_path: str,
+                         score_threshold: float):
+    """The request handler: (overlay image, status line), with the engine
+    cached across calls and rebuilt when the model path changes."""
+    global _ENGINE
+    if not os.path.exists(model_path):
+        return image, f"Error: Model not found at {model_path}"
+    try:
+        if _ENGINE is None or _ENGINE.model_path != model_path:
+            _ENGINE = InferenceEngine(model_path, **_DENSE)
+    except Exception as e:
+        return image, f"Error loading model: {e}"
+    boxes, scores, masks = _ENGINE.predict(image, score_threshold)
+    return render_overlay(image, boxes, scores, masks), \
+        f"Detected {len(boxes)} cells."
+
+
+def launch_gradio(model_path: str, port: int):
+    import gradio as gr  # type: ignore
+
+    with gr.Blocks(title="LiveCell Inference GUI") as demo:
+        gr.Markdown("# Mask R-CNN Cell Detection")
+        with gr.Row():
+            with gr.Column():
+                input_img = gr.Image(label="Input Image")
+                model_path_input = gr.Textbox(
+                    value=model_path, label="Path to model checkpoint")
+                score_slider = gr.Slider(minimum=0.0, maximum=1.0,
+                                         value=0.5, step=0.05,
+                                         label="Confidence Threshold")
+                run_btn = gr.Button("Run Detection", variant="primary")
+            with gr.Column():
+                output_img = gr.Image(label="Prediction Result")
+                output_log = gr.Textbox(label="Status")
+        run_btn.click(fn=predict_single_image,
+                      inputs=[input_img, model_path_input, score_slider],
+                      outputs=[output_img, output_log])
+    demo.launch(server_name="0.0.0.0", server_port=port)
+
+
+def launch_http(model_path: str, port: int):
+    """Dependency-free server: GET / serves an upload form; POST
+    /predict?threshold=0.5 with a raw or multipart image body returns
+    the overlay PNG with the status line in its X-Status header; POST
+    /shutdown stops it, so the process ends normally."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, HTTPServer
+    from urllib.parse import parse_qs, urlparse
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):
+            print("[serve]", fmt % args)
+
+        def do_GET(self):
+            body = (b"<html><body><h1>LiveCell Inference</h1>"
+                    b"<form method=post enctype=multipart/form-data "
+                    b"action=/predict><input type=file name=image>"
+                    b"<input type=submit></form></body></html>")
+            self.send_response(200)
+            self.send_header("Content-Type", "text/html")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_POST(self):
+            if self.path.startswith("/shutdown"):
+                body = b"shutting down"
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+                threading.Thread(target=self.server.shutdown,
+                                 daemon=True).start()
+                return
+            try:
+                from PIL import Image
+
+                length = int(self.headers.get("Content-Length", 0))
+                raw = self.rfile.read(length)
+                ctype = self.headers.get("Content-Type", "")
+                if "multipart/form-data" in ctype:
+                    # The first file payload of the form.
+                    boundary = ctype.split("boundary=")[-1].encode()
+                    payload = None
+                    for part in raw.split(b"--" + boundary):
+                        if b"\r\n\r\n" in part and b"filename=" in part:
+                            payload = part.split(b"\r\n\r\n", 1)[1]
+                            payload = payload.rsplit(b"\r\n", 1)[0]
+                            break
+                    raw = payload or raw
+                img = np.asarray(Image.open(io.BytesIO(raw)).convert("RGB"))
+                q = parse_qs(urlparse(self.path).query)
+                thr = float(q.get("threshold", ["0.5"])[0])
+                out, status = predict_single_image(img, model_path, thr)
+                buf = io.BytesIO()
+                Image.fromarray(out).save(buf, format="PNG")
+                data = buf.getvalue()
+                self.send_response(200)
+                self.send_header("Content-Type", "image/png")
+                self.send_header("X-Status", status)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+            except Exception as e:
+                msg = f"error: {e}".encode()
+                self.send_response(500)
+                self.send_header("Content-Length", str(len(msg)))
+                self.end_headers()
+                self.wfile.write(msg)
+
+    print(f"Starting HTTP inference server on port {port} "
+          f"(gradio unavailable)...")
+    server = HTTPServer(("0.0.0.0", port), Handler)
+    try:
+        server.serve_forever()  # returns after POST /shutdown
+    finally:
+        server.server_close()
+
+
+def main(argv=None, device=None):
+    """Serve `--model_path` on `--port`: gradio if it imports, else the
+    HTTP server. Runs on the card unless the caller passes
+    device="cpu"."""
+    parser = argparse.ArgumentParser(description="LiveCell inference GUI")
+    parser.add_argument("--model_path", type=str,
+                        default=DEFAULT_MODEL_PATH)
+    parser.add_argument("--port", type=int, default=7860)
+    add_dense_flags(parser)
+    args = parser.parse_args(argv)
+    _DENSE.update(dets=args.dets, infer_nms=args.infer_nms,
+                  det_nms=args.det_nms, device=resolve_device(device))
+
+    try:
+        import gradio  # noqa: F401
+    except ImportError:
+        launch_http(args.model_path, args.port)
+    else:
+        launch_gradio(args.model_path, args.port)
+
+
+if __name__ == "__main__":
+    main()

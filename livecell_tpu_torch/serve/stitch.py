@@ -1,6 +1,7 @@
 """Full-frame tiled inference with overlap-dedup stitching (counterpart
-of livecell_tpu/serve/stitch.py: tile_position, claimed_regions,
-make_frame_predictor).
+of livecell_tpu/serve/stitch.py: TILE_RE, group_tiles_by_image,
+tile_position, claimed_regions, make_frame_predictor,
+reconstruct_full_image, load_tiles).
 
 All tiles of a frame go through one batched forward. The dedup rule is
 precomputed into static per-tile "newly claimed mini-tile" masks:
@@ -13,16 +14,41 @@ precomputed into static per-tile "newly claimed mini-tile" masks:
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import os
+import re
+from collections import defaultdict
+from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from livecell_tpu_torch.config import TileConfig, TransferConfig
+from livecell_tpu_torch.data.png import read_png
 from livecell_tpu_torch.device import resolve_device
 from livecell_tpu_torch.ops.mask_ops import paste_masks
 from livecell_tpu_torch.ops.proposals import top_k_stable
+
+TILE_RE = re.compile(r"^(.+)_tile_(\d{2})\.png$")
+
+
+def group_tiles_by_image(test_dir: str) -> Dict[str, List[Dict]]:
+    """Tile files of a directory grouped by source frame, each group in
+    tile order: {frame: [{"path", "tile_num", "filename"}, ...]}."""
+    groups: Dict[str, List[Dict]] = defaultdict(list)
+    if not os.path.isdir(test_dir):
+        print(f"Error: test directory {test_dir} does not exist.")
+        return {}
+    for filename in sorted(os.listdir(test_dir)):
+        m = TILE_RE.match(filename)
+        if m:
+            groups[m.group(1)].append({
+                "path": os.path.join(test_dir, filename),
+                "tile_num": int(m.group(2)),
+                "filename": filename,
+            })
+    return {k: sorted(v, key=lambda x: x["tile_num"])
+            for k, v in groups.items()}
 
 
 def tile_position(tile_num: int, tiles_per_row: int) -> tuple[int, int]:
@@ -135,14 +161,37 @@ def make_frame_predictor(model, tile_cfg: TileConfig,
         return (det.boxes.reshape(-1, 4)[idx], det.scores.reshape(-1)[idx],
                 packed, idx, top > 0.5)
 
+    # A copy from pageable host memory waits for the card to finish the
+    # work already queued (the previous frame), so dispatch could not
+    # overlap it. The tiles go through pinned staging buffers instead,
+    # copied without blocking: one per frame in flight (run_pipelined
+    # keeps two), each reused only once the event after its copy has
+    # passed.
+    staging: List[tuple] = []
+
+    def to_device(tiles_u8: np.ndarray) -> torch.Tensor:
+        if dev.type != "cuda":
+            return torch.from_numpy(np.ascontiguousarray(tiles_u8))
+        if not staging:
+            staging.extend((torch.empty((n_tiles, th, tw, 3),
+                                        dtype=torch.uint8).pin_memory(),
+                            torch.cuda.Event()) for _ in range(2))
+        buf, copied = staging.pop(0)
+        copied.synchronize()
+        buf.numpy()[...] = tiles_u8
+        out = torch.empty(buf.shape, dtype=torch.uint8, device=dev)
+        out.copy_(buf, non_blocking=True)
+        copied.record()
+        staging.append((buf, copied))
+        return out
+
     def dispatch(tiles_u8: np.ndarray):
         """Enqueue one frame; returns device tensors without waiting."""
         if len(tiles_u8) < n_tiles:
             tiles_u8 = np.concatenate(
                 [tiles_u8, np.zeros((n_tiles - len(tiles_u8), th, tw, 3),
                                     np.uint8)])
-        return predict(torch.from_numpy(np.ascontiguousarray(tiles_u8))
-                       .to(dev))
+        return predict(to_device(tiles_u8))
 
     def fetch(handle) -> StitchedDetections:
         """Wait for a dispatch() handle and unpack to host detections."""
@@ -167,3 +216,35 @@ def make_frame_predictor(model, tile_cfg: TileConfig,
     run.dispatch = dispatch
     run.fetch = fetch
     return run
+
+
+def reconstruct_full_image(tiles_u8: np.ndarray, cfg: TileConfig
+                           ) -> np.ndarray:
+    """Paste tiles back into the frame, first cover wins. Returns float32
+    [H, W, 3] in [0, 1]; pixels no tile covers stay 0."""
+    canvas = np.zeros((cfg.frame_height, cfg.frame_width, 3), np.float32)
+    covered = np.zeros((cfg.frame_height, cfg.frame_width), bool)
+    for t in range(len(tiles_u8)):
+        col0, row0 = tile_position(t, cfg.tiles_per_row)
+        x0, y0 = col0 * cfg.mini_tile_width, row0 * cfg.mini_tile_height
+        h, w = tiles_u8[t].shape[:2]
+        y1, x1 = min(y0 + h, cfg.frame_height), min(x0 + w, cfg.frame_width)
+        patch = tiles_u8[t][:y1 - y0, :x1 - x0].astype(np.float32) / 255.0
+        un = ~covered[y0:y1, x0:x1]
+        canvas[y0:y1, x0:x1][un] = patch[un]
+        covered[y0:y1, x0:x1] = True
+    return canvas
+
+
+def load_tiles(tiles_info: List[Dict], cfg: TileConfig) -> np.ndarray:
+    """Read one frame's tile PNGs (data/png.py's decoder, grey widened to
+    RGB) into uint8 [T, th, tw, 3]; missing tiles are zero-filled."""
+    out = np.zeros((cfg.num_tiles, cfg.tile_height, cfg.tile_width, 3),
+                   np.uint8)
+    for info in tiles_info:
+        arr = read_png(info["path"])
+        t = info["tile_num"]
+        h = min(arr.shape[0], cfg.tile_height)
+        w = min(arr.shape[1], cfg.tile_width)
+        out[t, :h, :w] = arr[:h, :w]
+    return out

@@ -112,6 +112,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--coco_ap", action="store_true",
                         help="COCO mask/box AP on the test split after "
                              "training (train/coco_eval.py)")
+    parser.add_argument("--visualize_every", type=int, default=0,
+                        help="save GT-vs-pred 3-panel PNGs every N epochs "
+                             "(0 = off)")
+    parser.add_argument("--visualize_samples", type=int, default=5)
     parser.add_argument("--eval_batch_size", type=int, default=0,
                         help="batch size for eval forwards (0 = "
                              "batch_size)")
@@ -187,6 +191,37 @@ def main(argv=None, transfer_cfg=None, device=None):
     def sync_eval():
         eval_model.load_state_dict(model.state_dict())
 
+    def visualize_epoch(stage: int, epoch: int):
+        """3-panel GT-vs-prediction PNGs (serve/visualize.py:
+        prediction_panels) of the first --visualize_samples tiles of the
+        validation split (else the train split), to outputs/."""
+        from livecell_tpu_torch.serve.visualize import prediction_panels
+
+        sync_eval()
+        ds = val_ds if val_ds is not None else train_ds
+        done = 0
+        for images, targets, _ in ds.batches(eval_bs, shuffle=False):
+            det = eval_step(images)
+            boxes, scores, valid = (t.float().cpu().numpy() if
+                                    t.is_floating_point() else t.cpu().numpy()
+                                    for t in (det.boxes, det.scores,
+                                              det.valid))
+            for i in range(images.shape[0]):
+                if done >= args.visualize_samples:
+                    return
+                gtb = targets["boxes"][i][targets["valid"][i]]
+                stats = prediction_panels(
+                    images[i], gtb, boxes[i][valid[i]], scores[i][valid[i]],
+                    f"outputs/transfer_s{stage}e{epoch}_"
+                    f"sample{done + 1}.png")
+                print(f"  viz sample {done + 1}: GT {stats['gt_instances']}"
+                      f" pred {stats['pred_instances']} "
+                      f"conf {stats['mean_confidence']:.3f} "
+                      f"IoU {stats['mean_iou']:.3f}")
+                done += 1
+            if done >= args.visualize_samples:
+                return
+
     def run_stage(stage: int, epochs: int, lr: float, freeze: bool):
         # A fresh optimizer for each stage: zero momentum buffers.
         opt = stage_optimizer(model, lr, cfg.transfer.momentum,
@@ -238,6 +273,8 @@ def main(argv=None, transfer_cfg=None, device=None):
                       f"P {vm['mean_precision']:.4f} | "
                       f"R {vm['mean_recall']:.4f} | "
                       f"F1 {vm['f1_score']:.4f}")
+            if args.visualize_every and epoch % args.visualize_every == 0:
+                visualize_epoch(stage, epoch)
 
     run_stage(1, args.stage1_epochs, args.stage1_lr, freeze=True)
     run_stage(2, args.stage2_epochs, args.stage2_lr, freeze=False)

@@ -538,8 +538,7 @@ def test_transfer_pretrained_weights(split, monkeypatch, tmp_path):
     assert cfg == PORT_TTINY
 
 
-@pytest.mark.parametrize("flag", [["--mfu"], ["--visualize_every", "1"],
-                                  ["--visualize_samples", "2"]])
+@pytest.mark.parametrize("flag", [["--mfu"]])
 def test_transfer_parser_refuses_flags_not_ported(flag):
     with pytest.raises(SystemExit):
         tt.build_parser().parse_args(flag)
