@@ -116,7 +116,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      1 and moved by stage 2, a checkpoint that names the transfer model
      and serves a frame and a 300x222 tile (K5 twice each), test mask
      AP50 >= 0.5; prints each stage's epoch seconds and img/s and the
-     test mask and box AP/AP50/AP75;
+     test mask and box AP/AP50/AP75; then the CLI again with --mfu and
+     no epochs: each stage's analytic step TFLOP and a numeric MFU;
  17. serve front ends: a 15-frame "sparse" test split (375 tiles), its
      frames' polygon annotations kept, through the visualize CLI's own
      stages (serve/visualize.py:frame_stages: tiles decoded by
@@ -157,6 +158,7 @@ build into a directory inside the package.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -2108,6 +2110,29 @@ def phase_custom_cli(root, frame: np.ndarray) -> dict:
     return res
 
 
+def transfer_cli_mfu(root, train_transfer) -> list:
+    """The transfer CLI with --mfu and no epochs on the split in `root`,
+    from a directory of its own (it saves a checkpoint): each stage
+    prints its analytic step FLOPs and, on an H100, a numeric MFU."""
+    import io
+
+    buf = io.StringIO()
+    (Path(root) / "mfu").mkdir()
+    with contextlib.redirect_stdout(buf):
+        run_cli(train_transfer, ["--data_dir", str(root), "--batch_size",
+                                 str(TRANSFER_B), "--stage1_epochs", "0",
+                                 "--stage2_epochs", "0", "--mfu"],
+                Path(root) / "mfu", {}, {})
+    lines = [ln.strip() for ln in buf.getvalue().splitlines()
+             if "analytic step FLOPs" in ln or "MFU" in ln]
+    log("[transfer cli --mfu]", json.dumps(lines))
+    flops = [ln for ln in lines if ln.startswith("analytic step FLOPs")]
+    mfu = [ln for ln in lines if "; MFU 0." in ln]
+    if len(flops) != 2 or len(mfu) != 2:
+        raise AssertionError(f"transfer cli --mfu printed {lines}")
+    return lines
+
+
 def phase_transfer_cli(root, frame: np.ndarray) -> dict:
     """16. train_transfer.main with the two-stage from-scratch command on
     a "sparse" split, full-width TransferConfig() from seed-0 weights:
@@ -2197,6 +2222,7 @@ def phase_transfer_cli(root, frame: np.ndarray) -> dict:
         raise AssertionError(f"transfer cli: stage 1 frozen unchanged "
                              f"{stage1_still}, stage 2 moved "
                              f"{stage2_moved}, checkpoint type {kind}")
+    res["mfu"] = transfer_cli_mfu(root, train_transfer)
     del out, model
     engine = InferenceEngine(model_path=str(
         Path(root) / "models" / "maskrcnn_resnet50_two_stage.ckpt"))
@@ -2548,6 +2574,379 @@ def phase_serve_fronts(root, ckpts: dict, smi: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The mesh, the FLOP counter and the profiling helpers (phase 18).
+# ---------------------------------------------------------------------------
+# T2's geometry in f32 at batch 8 for the two-rank gloo step (4 a rank).
+GLOO_BATCH, GLOO_STEPS = 8, 2
+NCCL_STEPS = 3
+
+
+def _stepper(model, pool, batch: int, mesh=None):
+    """(step(i) -> the metrics of step i of `model` (SGD, lr 1e-3,
+    momentum 0.9) on the first `batch` tiles of `pool` (this rank's rows
+    with a mesh), its sampling noise from a generator seeded SEED + i;
+    the optimizer)."""
+    from livecell_tpu_torch.parallel.train_step import make_step_fn
+
+    opt = torch.optim.SGD(model.parameters(), lr=1e-3, momentum=0.9)
+    step = make_step_fn(model, opt, mesh)
+    idx = torch.arange(batch, device=pool.images.device)
+    if mesh is not None:
+        idx = idx[mesh.rows(batch)]
+    images, targets = pool.batch(idx)
+
+    def run(i):
+        m = step(images, targets,
+                 generator=torch.Generator(device="cuda").manual_seed(
+                     SEED + i))
+        return {k: float(v) for k, v in m.items()}
+
+    return run, opt
+
+
+def _steps(model, pool, batch: int, steps: int, mesh=None):
+    """The metrics of `steps` steps of _stepper's."""
+    run, _ = _stepper(model, pool, batch, mesh)
+    return [run(i) for i in range(steps)]
+
+
+def _state_rel(got: dict, want: dict) -> float:
+    """L2 distance of the parameter vectors over the L2 norm of `want`."""
+    keys = [k for k, v in want.items() if v.is_floating_point()]
+    diff = sum(float(((got[k].double() - want[k].double()) ** 2).sum())
+               for k in keys) ** 0.5
+    norm = sum(float((want[k].double() ** 2).sum()) for k in keys) ** 0.5
+    return diff / norm
+
+
+def _metrics_rel(got: list, want: list) -> float:
+    return max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+               for g, w in zip(got, want) for k in w)
+
+
+def phase_mesh_flops(cfg, tcfg, frame: np.ndarray, smi: str) -> dict:
+    """(a) count_flops of the T1, T2 and T3 steps and of requests (a) and
+    (d)'s device forwards at full width, on the kernel route and on the
+    plain route (equal counts), each beside its time_fn median and its
+    MFU against the H100's dense bf16 peak; one profiling.trace of a T1
+    step, whose Chrome trace must name K1-K4's kernels."""
+    from livecell_tpu_torch.config import TransferConfig
+    from livecell_tpu_torch.models.mask_rcnn import (
+        create_model, create_train_model)
+    from livecell_tpu_torch.models.transfer import create_transfer_model
+    from livecell_tpu_torch.parallel.train_step import (
+        build_optimizer, make_step_fn)
+    from livecell_tpu_torch.serve.stitch import make_frame_predictor
+    from livecell_tpu_torch.train.train_transfer import stage_optimizer
+    from livecell_tpu_torch.utils import profiling
+    from livecell_tpu_torch.utils.flops import (
+        _RULES, H100_BF16_PEAK, FlopCounter, count_flops, peak_flops)
+
+    pool = make_pool(cfg, TRAIN_B, "cuda", SEED)
+    images, targets = pool.batch(torch.arange(TRAIN_B, device="cuda"))
+    tpool = transfer_pool(TransferConfig(), "cuda")
+    tiles = torch.from_numpy(frame_tiles(frame, tcfg)).cuda()
+
+    def custom_step(kw, route):
+        c = dataclasses.replace(cfg, **kw, roi_backend=route,
+                                match_backend=route)
+        model = create_train_model(c, torch.Generator().manual_seed(SEED),
+                                   device="cuda")
+        step = make_step_fn(model, build_optimizer(model, 1e-3, 1e-4, 1))
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        return lambda: step(images, targets, generator=gen)
+
+    def transfer_step(route):
+        c = TransferConfig(roi_backend=route, rpn_match_backend=route)
+        model = create_transfer_model(
+            c, torch.Generator().manual_seed(SEED), device="cuda", train=True)
+        step = make_step_fn(model, stage_optimizer(model, 5e-3, 0.9, 0.0,
+                                                   False, clip_norm=10.0))
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        batch = pool_batch(tpool, 0, T_BATCH)
+        return lambda: step(*batch, generator=gen)
+
+    def request(kind, route):
+        if kind == "a":
+            model = create_model(dataclasses.replace(
+                cfg, roi_backend=route, match_backend=route),
+                torch.Generator().manual_seed(SEED))
+        else:
+            model = create_transfer_model(
+                TransferConfig(roi_backend=route, rpn_match_backend=route),
+                torch.Generator().manual_seed(SEED))
+        run = make_frame_predictor(model, tcfg, score_threshold=0.0)
+        return lambda: run.device_fn(tiles)
+
+    calls = {"T1": lambda r: custom_step(TRAIN_CFGS["T1"], r),
+             "T2": lambda r: custom_step(TRAIN_CFGS["T2"], r),
+             "T3": transfer_step,
+             "a": lambda r: request("a", r),
+             "d": lambda r: request("d", r)}
+    peak = peak_flops("cuda")
+    rows = {}
+    aten = {p.__name__ for p in _RULES}
+    for name, make in calls.items():
+        fn = make("kernel")
+        with FlopCounter() as counter:
+            fn()
+        flops = counter.total
+        # The kernels' charges (JAX's Pallas bodies: dense over every ROI
+        # and level) beside what the aten matmuls and convolutions did.
+        charged = sum(v for k, v in counter.by_op.items() if k not in aten)
+        plain = count_flops(make("plain"))
+        median = profiling.time_fn(fn, warmup=2, iters=7)["median_s"]
+        rows[name] = dict(tflop=flops / 1e12, plain_tflop=plain / 1e12,
+                          kernel_charge_tflop=charged / 1e12,
+                          median_ms=median * 1e3,
+                          tflop_per_s=flops / median / 1e12,
+                          mfu=None if peak is None else flops / median / peak,
+                          mfu_without_kernel_charges=None if peak is None
+                          else (flops - charged) / median / peak)
+        log(f"[mesh flops] {smi} | {name}", json.dumps(rows[name]))
+        if flops != plain or not flops > 0:
+            raise AssertionError(f"flops {name}: kernel route {flops}, plain "
+                                 f"route {plain}")
+        torch.cuda.empty_cache()
+    log(f"[mesh flops] {smi} | MFU against {H100_BF16_PEAK / 1e12:.1f} "
+        f"TFLOP/s (H100 SXM5 dense bf16)" if peak is not None else
+        f"[mesh flops] {smi} | not an H100 SXM: MFU unknown")
+
+    # One traced T1 step: the Chrome trace names K1-K4. A profiler
+    # session on this card now and then records only some launches, so
+    # up to three sessions are tried.
+    step = custom_step(TRAIN_CFGS["T1"], "kernel")
+    step()
+    names = ("roi_weights_kernel", "roi_align_fwd_kernel",
+             "roi_align_bwd_kernel", "match_kernel")
+    with tempfile.TemporaryDirectory() as tmp:
+        for attempt in range(3):
+            with profiling.trace(tmp) as prof:
+                step()
+            text = Path(prof.trace_path).read_text()
+            found = {k: k in text for k in names}
+            log(f"[mesh trace] attempt {attempt + 1}: {found}, "
+                f"{len(text)} bytes")
+            if all(found.values()):
+                break
+        else:
+            raise AssertionError(f"trace of a T1 step misses kernels: {found}")
+    stats = profiling.device_memory_stats()
+    log(f"[mesh memory] peak allocated "
+        f"{stats.get('allocated_bytes.all.peak', 0):.0f} MiB")
+    del pool, tpool
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_mesh_nccl(cfg, tcfg, frame: np.ndarray) -> dict:
+    """(b) World size 1 over NCCL in this process: NCCL_STEPS T2 steps at
+    batch 32 through the mesh step equal the no-mesh step bit for bit
+    (losses, gradient norm, every parameter and buffer), and request (a)
+    through the mesh frame predictor equals the no-mesh predictor bit for
+    bit."""
+    import os
+
+    import torch.distributed as dist
+
+    from livecell_tpu_torch.models.mask_rcnn import (
+        create_model, create_train_model)
+    from livecell_tpu_torch.parallel.mesh import make_mesh
+    from livecell_tpu_torch.serve.stitch import make_frame_predictor
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        t2 = dataclasses.replace(cfg, **TRAIN_CFGS["T2"])
+        pool = make_pool(t2, TRAIN_B, "cuda", SEED)
+        torch.backends.cudnn.deterministic = True
+        runs = {}
+        for label, m in (("no mesh", None), ("mesh", mesh)):
+            model = create_train_model(
+                t2, torch.Generator().manual_seed(SEED), device="cuda")
+            runs[label] = (_steps(model, pool, TRAIN_B, NCCL_STEPS, m),
+                           {k: v.clone() for k, v in
+                            model.state_dict().items()})
+            del model
+        (m0, s0), (m1, s1) = runs["no mesh"], runs["mesh"]
+        steps_equal = m0 == m1
+        state_equal = all(torch.equal(s0[k], s1[k]) for k in s0)
+        model = create_model(cfg, torch.Generator().manual_seed(SEED))
+        tiles = frame_tiles(frame, tcfg)
+        dets = [make_frame_predictor(model, tcfg, score_threshold=0.0,
+                                     mesh=m)(tiles) for m in (None, mesh)]
+        predict_equal = all(
+            np.array_equal(a, b) for a, b in zip(dets[0], dets[1]))
+        torch.backends.cudnn.deterministic = False
+        res = dict(world=1, backend=dist.get_backend(), mesh=repr(mesh),
+                   steps=NCCL_STEPS, batch=TRAIN_B, steps_equal=steps_equal,
+                   state_equal=state_equal, predict_equal=predict_equal,
+                   detections=len(dets[0].scores),
+                   total_loss=[x["total_loss"] for x in m1],
+                   grad_norm=[x["grad_norm"] for x in m1])
+        log("[mesh nccl]", json.dumps(res))
+        if not (steps_equal and state_equal and predict_equal):
+            raise AssertionError(f"mesh at world size 1 differs: {res}")
+    finally:
+        dist.destroy_process_group()
+        for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                  "LOCAL_RANK"):
+            os.environ.pop(k, None)
+    torch.cuda.empty_cache()
+    return res
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def gloo_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of two ranks on the card over gloo (phase 18 (c)): GLOO_STEPS
+    f32 T2-geometry steps of the mesh step on its rows of the batch, the
+    kernel routes, batch norm in train mode, the full state and
+    optimizer state after each; then which gloo collectives take CUDA
+    tensors. Rank 0 writes the results."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from livecell_tpu_torch.config import ModelConfig
+    from livecell_tpu_torch.models.mask_rcnn import create_train_model
+    from livecell_tpu_torch.parallel.mesh import full_state, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # cuDNN picks a convolution's algorithm by its batch size, so a rank's
+    # 4 images and the single process's 8 round differently and a
+    # proposal top-k can flip; PyTorch's own convolution (one GEMM an
+    # image) gives each image the same bits at any batch size.
+    torch.backends.cudnn.enabled = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2,
+                            timeout=timedelta(seconds=120))
+    try:
+        mesh = make_mesh(device="cuda:0")
+        cfg = gloo_cfg(ModelConfig())
+        pool = make_pool(cfg, GLOO_BATCH, "cuda", SEED)
+        model = create_train_model(cfg, torch.Generator().manual_seed(SEED),
+                                   device="cuda")
+        run, opt = _stepper(model, pool, GLOO_BATCH, mesh)
+        metrics, states = [], []
+        for i in range(GLOO_STEPS):
+            metrics.append(run(i))
+            sd, osd = full_state(model, mesh, opt)
+            # Copies: both dicts hold the live tensors the next step
+            # updates in place.
+            states.append(({k: v.cpu() for k, v in sd.items()},
+                           copy.deepcopy(osd)))
+        # Which collectives gloo runs on CUDA tensors (the mesh needs
+        # all_reduce only). Every rank takes the same branch, so a
+        # refusal is local and both ranks go on.
+        x = torch.full((4,), float(rank + 1), device="cuda")
+        probes = {
+            "all_reduce": lambda: dist.all_reduce(x.clone()),
+            "broadcast": lambda: dist.broadcast(x.clone(), 0),
+            "all_gather": lambda: dist.all_gather(
+                [torch.empty_like(x) for _ in range(2)], x),
+            "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                torch.empty(8, device="cuda"), x),
+            "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+                torch.empty(2, device="cuda"), x),
+        }
+        accepted = {}
+        for name, fn in probes.items():
+            try:
+                fn()
+                torch.cuda.synchronize()
+                accepted[name] = True
+            except (RuntimeError, ValueError) as e:
+                accepted[name] = f"{type(e).__name__}: {str(e)[:120]}"
+        if rank == 0:
+            torch.save({"metrics": metrics, "states": states,
+                        "accepted": accepted}, Path(out_dir) / "rank0.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_cfg(cfg):
+    """T2's geometry in f32 with the kernel routes."""
+    return dataclasses.replace(cfg, **TRAIN_CFGS["T2"],
+                               compute_dtype="float32", roi_backend="kernel",
+                               match_backend="kernel")
+
+
+def phase_mesh_gloo(cfg) -> dict:
+    """(c) Two ranks on the one card over gloo, data = 2, in spawned
+    processes: GLOO_STEPS f32 T2-geometry steps at batch GLOO_BATCH with
+    the kernel routes and train-mode batch norm against the single
+    process on the same card, 1e-5 relative on the losses and gradient
+    norm of each step and on the parameter vector (L2) after it. Both
+    sides run PyTorch's own convolutions (cuDNN off; see gloo_rank).
+
+    Each step is compared from the same state: the single process takes
+    step i + 1 from the state and momentum the mesh had after step i
+    (gathered), so a second step compares the mesh's arithmetic and its
+    carried state, not the chaos of this random-weight model, whose
+    proposal ranking flips on the last bit of a parameter (on an NVIDIA
+    H100 80GB HBM3 at 700 W, a second step from each side's own first
+    update moved the gradient norm by 1.2e-5 to 6.9e-5 while every
+    first-step metric agreed within 1e-7; PERF.md §6)."""
+    import torch.multiprocessing as mp
+
+    from livecell_tpu_torch.models.mask_rcnn import create_train_model
+    from livecell_tpu_torch.models.resnet import BatchNorm
+    from livecell_tpu_torch.parallel.mesh import DataAxis
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(gloo_rank, args=(free_port(), tmp), nprocs=2,
+                           start_method="spawn")
+        spawn_s = time.perf_counter() - t0
+        got = torch.load(Path(tmp) / "rank0.pt", weights_only=False)
+    torch.backends.cudnn.enabled = False      # as in gloo_rank
+    c = gloo_cfg(cfg)
+    pool = make_pool(c, GLOO_BATCH, "cuda", SEED)
+    model = create_train_model(c, torch.Generator().manual_seed(SEED),
+                               device="cuda")
+    # The mesh's batch norm (f64-sum statistics) on one process, where
+    # the card's single-process path takes cuDNN's: the two sides then
+    # differ only by the split of the batch.
+    one = DataAxis(None, 1, 0)
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.data_axis = one
+    run, opt = _stepper(model, pool, GLOO_BATCH)
+    want, params_err = [], []
+    for i, (sd, osd) in enumerate(got["states"]):
+        want.append(run(i))
+        params_err.append(_state_rel(
+            sd, {k: v.cpu() for k, v in model.state_dict().items()}))
+        model.load_state_dict(sd)
+        opt.load_state_dict(osd)
+    torch.backends.cudnn.enabled = True
+    res = dict(world=2, backend="gloo", batch=GLOO_BATCH, steps=GLOO_STEPS,
+               spawn_and_steps_s=spawn_s,
+               metrics_rel_err=_metrics_rel(got["metrics"], want),
+               params_rel_err=max(params_err),
+               params_rel_err_per_step=params_err,
+               gloo_cuda_collectives=got["accepted"],
+               losses_mesh=got["metrics"], losses_single=want)
+    log("[mesh gloo]", json.dumps(res))
+    if not (res["metrics_rel_err"] <= 1e-5 and res["params_rel_err"] <= 1e-5
+            and got["accepted"]["all_reduce"] is True):
+        raise AssertionError(f"two-rank gloo step differs: {res}")
+    del model, pool
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2691,6 +3090,13 @@ def main() -> int:
                 fronts = phase_serve_fronts(Path(tmp), ckpts, smi)
         cases += fronts["cases"]
         torch.cuda.empty_cache()
+
+    # 18. the mesh: FLOPs and MFU, world size 1 over NCCL, two ranks on
+    # the card over gloo.
+    with Phase(18, "mesh"):
+        phase_mesh_flops(cfg, tcfg, frame, smi)
+        phase_mesh_nccl(cfg, tcfg, frame)
+        phase_mesh_gloo(cfg)
 
     # The kernels' line: every kernel's headline case at its training
     # step's shape (K1-K3: B = 32, K = 128 bf16; K4: T2's full form; K5,

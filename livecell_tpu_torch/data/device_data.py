@@ -7,6 +7,11 @@ trainers' epoch plan lives here too: `epoch_indices` for the batches,
 The split's arrays go to device memory once; every step then gathers
 its batch by index on the card, and an epoch fetches its metrics from
 the card once, at its end, as the JAX package's scan does.
+
+With a mesh each rank holds the whole split on its own card (replicated,
+as in JAX) and takes, from each row of the index matrix, the slice of
+its data coordinate (`local_indices`); ranks of one model group take
+the same rows.
 """
 
 from __future__ import annotations
@@ -75,15 +80,25 @@ def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state))
 
 
+def local_indices(idx_mat, mesh=None) -> np.ndarray:
+    """This rank's columns of an [S, B] index matrix: all of them
+    without a mesh, else the slice of its data coordinate."""
+    idx_mat = np.asarray(idx_mat)
+    if mesh is None:
+        return idx_mat
+    return idx_mat[:, mesh.rows(idx_mat.shape[1])]
+
+
 def train_epoch(model, opt, pool: DeviceDataset, idx_mat,
-                generator=None) -> Dict[str, np.ndarray]:
-    """One epoch of `make_step_fn(model, opt)` steps over the batches
-    idx_mat [S, B] of `pool`, the sampling uniforms drawn from
+                generator=None, mesh=None) -> Dict[str, np.ndarray]:
+    """One epoch of `make_step_fn(model, opt, mesh)` steps over the
+    batches idx_mat [S, B] of `pool` (with a mesh, global batches of
+    which this rank takes its rows), the sampling uniforms drawn from
     `generator`. Each step's metrics stay on the card; the epoch fetches
     them once: {name: [S] float array}."""
-    step = make_step_fn(model, opt)
-    idx = torch.as_tensor(np.asarray(idx_mat), dtype=torch.long).to(
-        pool.images.device)
+    step = make_step_fn(model, opt, mesh)
+    idx = torch.as_tensor(local_indices(idx_mat, mesh),
+                          dtype=torch.long).to(pool.images.device)
     rows = []
     for i in range(idx.shape[0]):
         images, targets = pool.batch(idx[i])
@@ -100,13 +115,15 @@ def fetch_metrics(rows) -> Dict[str, np.ndarray]:
     return {k: table[:, j] for j, k in enumerate(names)}
 
 
-def make_indexed_eval_step(model, dd: DeviceDataset) -> Callable:
+def make_indexed_eval_step(model, dd: DeviceDataset, mesh=None) -> Callable:
     """ev(idx) -> (Detections, targets): the batch `idx` (indices into
     dd) gathered on dd's device, normalized (images / 255, mask targets
     / 255) and run through the model's inference forward, with the
     normalized targets for the metrics, so an evaluation never fetches
-    ground truth from the host."""
-    run = make_eval_step(model, device=dd.images.device)
+    ground truth from the host. With a mesh each rank runs its data
+    coordinate's rows and the detections of the whole batch are
+    gathered (make_eval_step)."""
+    run = make_eval_step(model, device=dd.images.device, mesh=mesh)
 
     def ev(idx) -> Tuple[Detections, Dict[str, torch.Tensor]]:
         idx = torch.as_tensor(idx, dtype=torch.long,

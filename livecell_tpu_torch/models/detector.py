@@ -176,33 +176,43 @@ def match_head_targets(
         mask_weight=(fg_mask & has_gt).float())
 
 
+def local_count(total: torch.Tensor) -> torch.Tensor:
+    """A loss normalizer of one process's batch, as it is."""
+    return total
+
+
 def box_losses(cls_logits: torch.Tensor, box_deltas: torch.Tensor,
-               t: HeadTargets) -> Dict[str, torch.Tensor]:
+               t: HeadTargets, count=local_count) -> Dict[str, torch.Tensor]:
     """CE over all (valid) proposals + smooth-L1 on the class-1 deltas
     over box-fg proposals, on flat [K] targets (reference
-    custom_maskrcnn.py:221-240)."""
+    custom_maskrcnn.py:221-240). `count` maps a normalizer to its value
+    over the global batch (parallel/mesh.py:DataAxis.count on a data
+    axis)."""
     logp = F.log_softmax(cls_logits.float(), dim=-1)
     ce = -torch.gather(logp, 1, t.cls_labels[:, None])[:, 0]
-    cls_loss = (ce * t.cls_weight).sum() / t.cls_weight.sum().clamp(min=1.0)
+    cls_loss = (ce * t.cls_weight).sum() / count(
+        t.cls_weight.sum()).clamp(min=1.0)
     fg_deltas = box_deltas[:, 4:8].float()
     reg = smooth_l1(fg_deltas, t.reg_targets).mean(dim=1)
-    reg_sum = t.reg_weight.sum()
+    reg_sum = count(t.reg_weight.sum())
     reg_loss = (reg * t.reg_weight).sum() / reg_sum.clamp(min=1.0)
     reg_loss = torch.where(reg_sum > 0, reg_loss, torch.zeros_like(reg_loss))
     return {"loss_box_cls": cls_loss, "loss_box_reg": reg_loss}
 
 
 def mask_loss_on(mask_logits: torch.Tensor, mask_targets: torch.Tensor,
-                 mask_weight: torch.Tensor) -> torch.Tensor:
+                 mask_weight: torch.Tensor, count=local_count) -> torch.Tensor:
     """BCE on the class-1 mask logits [K, 28, 28, nc] against targets
-    [K, 28, 28], weighted per row by mask_weight [K]."""
+    [K, 28, 28], weighted per row by mask_weight [K]; `count` as in
+    box_losses."""
     logits1 = mask_logits[..., 1].float()
     per = bce_with_logits(logits1, mask_targets).mean(dim=(1, 2))
-    wsum = mask_weight.sum()
+    wsum = count(mask_weight.sum())
     loss = (per * mask_weight).sum() / wsum.clamp(min=1.0)
     return torch.where(wsum > 0, loss, torch.zeros_like(loss))
 
 
-def mask_loss(mask_logits: torch.Tensor, t: HeadTargets) -> torch.Tensor:
+def mask_loss(mask_logits: torch.Tensor, t: HeadTargets,
+              count=local_count) -> torch.Tensor:
     """BCE over mask-fg proposals (reference mask_utils.py:117-126)."""
-    return mask_loss_on(mask_logits, t.mask_targets, t.mask_weight)
+    return mask_loss_on(mask_logits, t.mask_targets, t.mask_weight, count)

@@ -3,7 +3,11 @@
 Both take NHWC ROI features [K, 7, 7, C], as the RoIAlign gives them.
 
 BoxHead: flatten (y, x, c)-major -> FC 1024 -> FC 1024 -> (cls_score,
-bbox_pred); predictor init normal std 0.01 / 0.001, zero bias.
+bbox_pred); predictor init normal std 0.01 / 0.001, zero bias. On a
+mesh with a model axis (`model_group`, parallel/mesh.py:shard_model)
+fc1 holds this rank's output columns and fc2 the matching input
+columns: fc1 takes its input through copy_to_model, fc2's partial
+products are summed by reduce_from_model before its bias.
 
 MaskHead: 4x (3x3 conv 256 + ReLU) -> 2x2/2 transposed conv + ReLU ->
 1x1 logits -> fixed bilinear resize 14 -> 28; kaiming_normal(fan_out)
@@ -25,6 +29,8 @@ from livecell_tpu_torch.ops.mask_ops import resize_bilinear
 
 
 class BoxHead(nn.Module):
+    model_group = None
+
     def __init__(self, in_channels: int, num_classes: int, roi_size: int,
                  generator: torch.Generator):
         super().__init__()
@@ -46,7 +52,16 @@ class BoxHead(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[K, 7, 7, C] -> (cls_logits [K, nc], deltas [K, 4nc]) in f32."""
         x = roi_feats.reshape(roi_feats.shape[0], -1).to(self.fc1.weight.dtype)
-        x = F.relu(self.fc2(F.relu(self.fc1(x))))
+        if self.model_group is None:
+            x = F.relu(self.fc2(F.relu(self.fc1(x))))
+        else:
+            from livecell_tpu_torch.parallel.mesh import (
+                copy_to_model, reduce_from_model)
+
+            h = F.relu(self.fc1(copy_to_model(x, self.model_group)))
+            y = reduce_from_model(F.linear(h, self.fc2.weight),
+                                  self.model_group)
+            x = F.relu(y + self.fc2.bias.to(y.dtype))
         return self.cls_score(x).float(), self.bbox_pred(x).float()
 
 

@@ -24,7 +24,7 @@ from livecell_tpu_torch.config import ModelConfig
 from livecell_tpu_torch.device import constant, resolve_device
 from livecell_tpu_torch.models.cbam import CBAM
 from livecell_tpu_torch.models.detector import (
-    Detections, HeadTargets, box_losses, mask_loss, mask_loss_on,
+    Detections, HeadTargets, box_losses, local_count, mask_loss, mask_loss_on,
     match_head_targets, rpn_loss_single, rpn_reg_loss_from_match, rpn_sample)
 from livecell_tpu_torch.models.fpn import FPN
 from livecell_tpu_torch.models.heads import BoxHead, MaskHead
@@ -43,7 +43,15 @@ from livecell_tpu_torch.ops.proposals import (
 class CustomMaskRCNN(nn.Module):
     """ResNet-18 + serial CBAM + FPN + RPN + box/mask heads. Module
     names mirror the JAX parameter tree (backbone, cbam1..4, fpn, rpn,
-    box_head, mask_head)."""
+    box_head, mask_head).
+
+    `data_axis` (parallel/mesh.py:shard_model) makes the training losses
+    those of the global batch split over the data ranks: fixed mode
+    divides by the global normalizers and the global image count; quirk
+    mode reads the whole global batch's GT and keeps its losses on data
+    rank 0, which holds image 0."""
+
+    data_axis = None
 
     def __init__(self, cfg: ModelConfig,
                  generator: Optional[torch.Generator] = None):
@@ -161,6 +169,15 @@ class CustomMaskRCNN(nn.Module):
     def _train_forward(self, images, targets, noise, record):
         c = self.cfg
         b = images.shape[0]
+        axis = self.data_axis
+        n_images = b if axis is None else b * axis.size
+        split = axis is not None and c.heads_all_images
+        count = axis.count if split else local_count
+
+        def batch_mean(per_image):
+            if not split:
+                return per_image.mean()
+            return per_image.sum() / n_images
         img_size = (c.image_height, c.image_width)
         feat0 = self.extract_features(images, levels=1)[0]
         cls_scores, bbox_deltas = self.rpn([feat0.permute(0, 3, 1, 2)])
@@ -177,8 +194,11 @@ class CustomMaskRCNN(nn.Module):
         if c.heads_all_images:
             rpn_gt, rpn_valid = gt_boxes, gt_valid
         else:
-            rpn_gt, rpn_valid = gt_boxes.reshape(1, -1, 4), \
-                gt_valid.reshape(1, -1)
+            all_gt = (gt_boxes, gt_valid, mask28)
+            if axis is not None:
+                all_gt = tuple(axis.gather(x) for x in all_gt)
+            rpn_gt, rpn_valid = all_gt[0].reshape(1, -1, 4), \
+                all_gt[1].reshape(1, -1)
         full = c.decode_proposals and c.heads_all_images
         match = self._match_anchors(rpn_gt, rpn_valid, full=full)
         max_iou = match[0] if full else match
@@ -190,18 +210,18 @@ class CustomMaskRCNN(nn.Module):
             deltas=rpn_dlt[s] if c.decode_proposals else None)
 
         mask_gt = None
-        if not c.heads_all_images and b > 1:
+        if not c.heads_all_images and n_images > 1:
             # Reference quirk: mask targets are re-matched against the
             # whole batch's GT (mask_utils.py:88-108).
             mask_gt = (rpn_gt, rpn_valid,
-                       mask28.reshape((1, -1) + mask28.shape[2:]))
+                       all_gt[2].reshape((1, -1) + mask28.shape[2:]))
         t = match_head_targets(props.boxes, props.valid, gt_boxes[s],
                                gt_valid[s], mask28[s], c, mask_gt=mask_gt)
         rois = self._roi_align(feat0[s], props.boxes)         # [b', K, ...]
         flat_rois = rois.reshape((-1,) + rois.shape[2:])
         cls_logits, box_deltas = self.box_head(flat_rois)
         flat_t = HeadTargets(*(x.reshape((-1,) + x.shape[2:]) for x in t))
-        losses = box_losses(cls_logits, box_deltas, flat_t)
+        losses = box_losses(cls_logits, box_deltas, flat_t, count)
 
         m = c.mask_train_samples
         order = None
@@ -217,17 +237,18 @@ class CustomMaskRCNN(nn.Module):
                 mrois.reshape((-1,) + rois.shape[2:]))
             losses["loss_mask"] = mask_loss_on(
                 mask_logits, mtargets.reshape((-1,) + mask28.shape[2:]),
-                torch.gather(t.mask_weight, 1, order).reshape(-1))
+                torch.gather(t.mask_weight, 1, order).reshape(-1), count)
         else:
-            losses["loss_mask"] = mask_loss(self.mask_head(flat_rois), flat_t)
-        losses["loss_rpn_cls"] = loss_rpn.mean()
+            losses["loss_mask"] = mask_loss(self.mask_head(flat_rois), flat_t,
+                                            count)
+        losses["loss_rpn_cls"] = batch_mean(loss_rpn)
         if c.decode_proposals:
             # Quirk mode regresses image 0's deltas on image 0's GT: a
             # second, full match.
             reg_match = match if full else self._match_anchors(
                 gt_boxes[s], gt_valid[s])
-            losses["loss_rpn_reg"] = rpn_reg_loss_from_match(
-                rpn_dlt[s], *reg_match, gt_valid[s], c).mean()
+            losses["loss_rpn_reg"] = batch_mean(rpn_reg_loss_from_match(
+                rpn_dlt[s], *reg_match, gt_valid[s], c))
         if record is not None:
             pos, neg, _ = rpn_sample(max_iou, noise["rpn_pos"],
                                      noise["rpn_neg"], c)
@@ -235,6 +256,11 @@ class CustomMaskRCNN(nn.Module):
                           proposal_valid=props.valid)
             if order is not None:
                 record["mask_subset"] = order
+        if axis is not None and not c.heads_all_images:
+            # Every rank runs the same graph (the collectives of the
+            # backward must match); only image 0's rank keeps its losses.
+            keep = float(axis.rank == 0)
+            losses = {k: v * keep for k, v in losses.items()}
         return losses
 
     @torch.no_grad()

@@ -31,7 +31,7 @@ from torch import nn
 from livecell_tpu_torch.config import TransferConfig
 from livecell_tpu_torch.device import constant, resolve_device
 from livecell_tpu_torch.models.detector import (
-    Detections, bce_with_logits, smooth_l1)
+    Detections, local_count, bce_with_logits, smooth_l1)
 from livecell_tpu_torch.models.fpn import FPN
 from livecell_tpu_torch.models.init import (
     kaiming_normal_fan_out, normal_std, torch_default_bias,
@@ -284,7 +284,10 @@ def box_targets(cfg: TransferConfig, prop_boxes: torch.Tensor,
 class TransferMaskRCNN(nn.Module):
     """The assembled detector. Images [B, th, tw, 3] in [0, 1] (the input
     tile); train_forward -> torchvision's loss dict, inference_forward ->
-    Detections in tile coordinates."""
+    Detections in tile coordinates. `data_axis` (parallel/mesh.py:
+    shard_model) makes the losses' normalizers the global batch's."""
+
+    data_axis = None
 
     def __init__(self, cfg: TransferConfig,
                  generator: Optional[torch.Generator] = None):
@@ -461,8 +464,9 @@ class TransferMaskRCNN(nn.Module):
         mrois = self.ms_roi(feats, mb, c.mask_roi_size)
 
         # RPN losses, normalized by the sampled count like torchvision.
+        count = local_count if self.data_axis is None else self.data_axis.count
         rval_f = rval.float()
-        n_sampled = rval_f.sum().clamp(min=1.0)
+        n_sampled = count(rval_f.sum()).clamp(min=1.0)
         loss_obj = (bce_with_logits(obj_s, rlabels) * rval_f).sum() \
             / n_sampled
         reg = smooth_l1(rpn_reg_p.reshape(-1, 4), rpn_reg_t.reshape(-1, 4),
@@ -474,7 +478,7 @@ class TransferMaskRCNN(nn.Module):
         cls_logits, box_deltas = self.box_predictor(h)
         flat_labels = labels.reshape(-1)
         flat_sval = sval.reshape(-1).float()
-        n_box = flat_sval.sum().clamp(min=1.0)
+        n_box = count(flat_sval.sum()).clamp(min=1.0)
         logp = F.log_softmax(cls_logits, dim=-1)
         ce = -torch.gather(logp, 1, flat_labels[:, None])[:, 0]
         loss_cls = (ce * flat_sval).sum() / n_box
@@ -489,7 +493,7 @@ class TransferMaskRCNN(nn.Module):
         per_roi = bce_with_logits(mlogits[..., 1].reshape(-1, m, m),
                                   mtargets.reshape(-1, m, m)).mean(dim=(1, 2))
         mv = mvalid.reshape(-1).float()
-        loss_mask = (per_roi * mv).sum() / mv.sum().clamp(min=1.0)
+        loss_mask = (per_roi * mv).sum() / count(mv.sum()).clamp(min=1.0)
         return {"loss_objectness": loss_obj,
                 "loss_rpn_box_reg": loss_rpn_reg,
                 "loss_classifier": loss_cls,

@@ -14,7 +14,9 @@ plain PyTorch version (`match_anchors_plain`, the counterpart of
 CPU tensors and launches the kernel, or raises, on CUDA tensors.
 `match_anchors_emulated` replays the kernel's decomposition (valid GT
 only, GT chunks, packed keys merged by maxima) on the CPU for the tests;
-nothing on the main path calls it.
+nothing on the main path calls it. The wrapper and its plain version
+are charged to an active FLOP counter as the Pallas kernel's one-hot
+contraction (utils/flops.py:match_flops).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from livecell_tpu_torch.ops import _build
 from livecell_tpu_torch.ops.boxes import box_area, box_iou, encode_boxes
 from livecell_tpu_torch.ops.cuda_roi_align import _require_cuda, _stream
 from livecell_tpu_torch.ops.proposals import take_rows
+from livecell_tpu_torch.utils.flops import charged, match_flops
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,6 +50,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _k4_flops(anchors, gt_boxes, gt_valid, full=True) -> float:
+    return match_flops(gt_valid.shape[0], anchors.shape[0],
+                       gt_valid.shape[1], full)
+
+
+@charged(_k4_flops)
 def match_anchors_plain(anchors: torch.Tensor, gt_boxes: torch.Tensor,
                         gt_valid: torch.Tensor, full: bool = True):
     """Plain version of K4 (`match_anchors_xla`): the [B, N, I] IoU
@@ -72,6 +81,7 @@ def match_kernels(b: int, n: int, n_gt: int, full: bool) -> tuple:
         ("match_finalize_kernel",) if full or chunks > 1 else ())
 
 
+@charged(_k4_flops)
 def match_anchors(anchors: torch.Tensor, gt_boxes: torch.Tensor,
                   gt_valid: torch.Tensor, full: bool = True):
     """K4 wrapper: anchors [N,4] f32, gt_boxes [B,I,4] f32, gt_valid

@@ -15,6 +15,10 @@ assign_levels, ms_roi_align_pallas).
      the others) then K3's tiled gather on four levels; one count per
      call for the two launches.
 
+K5 and K6 are charged to an active FLOP counter as the JAX composition
+is: the single-level Pallas kernel's charge on each of the four levels
+(utils/flops.py).
+
 As for every kernel of the port: a launch counter per wrapper
 (`<wrapper>.launches`), a plain PyTorch version beside it, and a wrapper
 that computes the plain version on CPU tensors and launches the kernel,
@@ -42,6 +46,7 @@ from livecell_tpu_torch.ops import _build
 from livecell_tpu_torch.ops.cuda_roi_align import (
     _DTYPES, MAX_RATIO, _check_tiled, _require_aligned, _require_cuda,
     _stream, roi_align_fwd_plain, roi_spans_plain, roi_weights_plain)
+from livecell_tpu_torch.utils.flops import charged, roi_pool_flops
 
 LEVELS = 4
 # The plain versions pool ROIs in chunks whose f32 intermediates
@@ -126,6 +131,20 @@ def _check_inputs(feats, boxes, levels) -> Tuple[int, int, int]:
 # K5: the forward.
 # ---------------------------------------------------------------------------
 
+def _k5_flops(feats, boxes, levels, out_size=7, sampling_ratio=2) -> float:
+    """The JAX composition pools every ROI from every level with the
+    single-level Pallas kernel (pallas_ms_roi.py:70-75)."""
+    b, k = boxes.shape[:2]
+    return sum(roi_pool_flops(b, k, out_size, f.shape[1], f.shape[2],
+                              f.shape[3]) for f in feats)
+
+
+def _k6_flops(g, boxes, levels, feat_hw, sampling_ratio=2) -> float:
+    b, k, n, _, c = g.shape
+    return sum(roi_pool_flops(b, k, n, h, w, c) for h, w in feat_hw)
+
+
+@charged(_k5_flops)
 def ms_roi_align_fwd_plain(feats: Sequence[torch.Tensor],
                            boxes: torch.Tensor, levels: torch.Tensor,
                            out_size: int = 7, sampling_ratio: int = 2
@@ -145,6 +164,7 @@ def ms_roi_align_fwd_plain(feats: Sequence[torch.Tensor],
     return out
 
 
+@charged(_k5_flops)
 def ms_roi_align_fwd(feats: Sequence[torch.Tensor], boxes: torch.Tensor,
                      levels: torch.Tensor, out_size: int = 7,
                      sampling_ratio: int = 2) -> torch.Tensor:
@@ -241,6 +261,7 @@ def ms_roi_bin_windows_plain(boxes: torch.Tensor, levels: torch.Tensor,
 # K6: the backward with respect to the four maps.
 # ---------------------------------------------------------------------------
 
+@charged(_k6_flops)
 def ms_roi_align_bwd_plain(g: torch.Tensor, boxes: torch.Tensor,
                            levels: torch.Tensor,
                            feat_hw: Sequence[Tuple[int, int]],
@@ -307,6 +328,7 @@ def ms_roi_spans(boxes: torch.Tensor, levels: torch.Tensor,
     return spans
 
 
+@charged(_k6_flops)
 def ms_roi_align_bwd(g: torch.Tensor, boxes: torch.Tensor,
                      levels: torch.Tensor,
                      feat_hw: Sequence[Tuple[int, int]],

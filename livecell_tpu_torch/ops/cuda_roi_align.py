@@ -17,6 +17,10 @@ counter (`<wrapper>.launches`, raised by one per kernel launch):
      non-zero row and column span) then the tiled gather; one count per
      call for the two launches.
 
+Each wrapper and its plain version are charged to an active FLOP
+counter as the Pallas kernel they replace (utils/flops.py: K1 nothing,
+K2 and K3 `roi_pool_flops`).
+
 A wrapper given CPU tensors computes its plain version; given CUDA
 tensors it launches its kernel or raises on a dtype, shape or layout
 the kernel does not take. There is no fallback from one to the other.
@@ -41,6 +45,7 @@ import torch
 
 from livecell_tpu_torch.config import ROUTES
 from livecell_tpu_torch.ops import _build
+from livecell_tpu_torch.utils.flops import charged, roi_pool_flops
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -124,6 +129,22 @@ def _require_aligned(*tensors: torch.Tensor) -> None:
 # K1: pooled bilinear weights.
 # ---------------------------------------------------------------------------
 
+def _k1_flops(*args, **kwargs) -> float:
+    """The Pallas weights kernel's body holds no dot_general."""
+    return 0.0
+
+
+def _k2_flops(features, wy, wx) -> float:
+    b, h, w, c = features.shape
+    return roi_pool_flops(b, wy.shape[1], wy.shape[2], h, w, c)
+
+
+def _k3_flops(g, wy, wx, feat_hw) -> float:
+    b, k, n, _, c = g.shape
+    return roi_pool_flops(b, k, n, feat_hw[0], feat_hw[1], c)
+
+
+@charged(_k1_flops)
 def roi_weights_plain(boxes: torch.Tensor, feat_hw: Tuple[int, int],
                       out_size: int = 7, sampling_ratio: int = 2,
                       spatial_scale: float = 0.25,
@@ -157,6 +178,7 @@ def roi_weights_plain(boxes: torch.Tensor, feat_hw: Tuple[int, int],
             axis(boxes[..., 0], boxes[..., 2], feat_hw[1]))
 
 
+@charged(_k1_flops)
 def roi_weights(boxes: torch.Tensor, feat_hw: Tuple[int, int],
                 out_size: int = 7, sampling_ratio: int = 2,
                 spatial_scale: float = 0.25,
@@ -242,6 +264,7 @@ def roi_weights_rows_plain(boxes: torch.Tensor, feat_hw: Tuple[int, int],
 # K2: pooled-feature contraction.
 # ---------------------------------------------------------------------------
 
+@charged(_k2_flops)
 def roi_align_fwd_plain(features: torch.Tensor, wy: torch.Tensor,
                         wx: torch.Tensor) -> torch.Tensor:
     """Plain version of K2: the row contraction and the column
@@ -254,6 +277,7 @@ def roi_align_fwd_plain(features: torch.Tensor, wy: torch.Tensor,
     return out.to(features.dtype)
 
 
+@charged(_k2_flops)
 def roi_align_fwd(features: torch.Tensor, wy: torch.Tensor,
                   wx: torch.Tensor) -> torch.Tensor:
     """K2 wrapper: features [B,H,W,C] (NHWC), Wy [B,K,n,H], Wx [B,K,n,W]
@@ -332,6 +356,7 @@ def roi_taps_plain(wy: torch.Tensor, wx: torch.Tensor
 # K3: the backward of K2 with respect to the features.
 # ---------------------------------------------------------------------------
 
+@charged(_k3_flops)
 def roi_align_bwd_plain(g: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
                         feat_hw: Tuple[int, int]) -> torch.Tensor:
     """Plain version of K3: u = sum_q Wx g (f32, rounded to bf16 for bf16
@@ -378,6 +403,7 @@ def roi_spans(wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
     return spans
 
 
+@charged(_k3_flops)
 def roi_align_bwd(g: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
                   feat_hw: Tuple[int, int]) -> torch.Tensor:
     """K3 wrapper: g [B,K,n,n,C], Wy [B,K,n,H], Wx [B,K,n,W] of one dtype

@@ -21,6 +21,7 @@ from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from livecell_tpu_torch.config import TileConfig, TransferConfig
@@ -103,7 +104,7 @@ def input_tile(mcfg) -> tuple[int, int]:
 def make_frame_predictor(model, tile_cfg: TileConfig,
                          score_threshold: float = 0.5,
                          mask_threshold: float = 0.4,
-                         max_frame_dets: int = 256, device=None):
+                         max_frame_dets: int = 256, device=None, mesh=None):
     """Build the frame predictor for `model` (a CustomMaskRCNN or a
     TransferMaskRCNN already on `device`, the card unless the caller
     passes "cpu"). Each tile is zero-padded to the model's input tile
@@ -113,6 +114,14 @@ def make_frame_predictor(model, tile_cfg: TileConfig,
     with run.dispatch (enqueue a frame, returns device tensors without
     waiting), run.fetch (wait and unpack), run.device_fn (the device
     computation on a uint8 tile tensor) and run.n_pad_tiles.
+
+    With `mesh` (parallel/mesh.py; the model replicated on every rank)
+    the frame's tiles are split over the data axis, padded to a multiple
+    of it with zero claim regions, so pad tiles keep nothing: each rank
+    detects on its share, the fixed-slot candidates (boxes, scores, keep
+    flags) are gathered over the data axis, every rank picks the same
+    survivors, and each survivor's packed mask is summed in from the one
+    rank that holds it. Every rank returns the same StitchedDetections.
     """
     dev = resolve_device(device)
     param_dev = next(model.parameters()).device
@@ -126,8 +135,14 @@ def make_frame_predictor(model, tile_cfg: TileConfig,
     offs = np.stack([(t_idx % tpr) * tile_cfg.mini_tile_width,
                      (t_idx // tpr) * tile_cfg.mini_tile_height],
                     axis=1).astype(np.float32)          # [T, 2] (x, y)
-    regions = torch.from_numpy(claimed_regions(tile_cfg)).to(dev) > 0
+    regions = claimed_regions(tile_cfg)
     n_tiles = tile_cfg.num_tiles
+    if mesh is not None:
+        n_tiles = -(-n_tiles // mesh.data_size) * mesh.data_size
+        regions = np.concatenate([regions, np.zeros(
+            (n_tiles - len(regions), th, tw), np.float32)])
+    regions = torch.from_numpy(regions).to(dev) > 0
+    rows = mesh.rows(n_tiles) if mesh is not None else slice(None)
     tw_pad = ((tw + 7) // 8) * 8
     max_frame_dets = min(max_frame_dets, n_tiles * mcfg.max_detections)
     bits = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8,
@@ -135,30 +150,44 @@ def make_frame_predictor(model, tile_cfg: TileConfig,
 
     @torch.inference_mode()
     def predict(tiles_u8: torch.Tensor):
-        images = tiles_u8.float() / 255.0
+        images = tiles_u8[rows].float() / 255.0
         images = F.pad(images, (0, 0, 0, iw - tw, 0, ih - th))
         det = model.inference_forward(images)
 
         masks = paste_masks(det.mask_probs, det.boxes, (ih, iw),
                             valid=det.valid)[:, :, :th, :tw] > 0
         area = masks.sum(dim=(2, 3)).float()            # [T, D]
-        inside = (masks & regions[:, None]).sum(dim=(2, 3)).float()
+        inside = (masks & regions[rows, None]).sum(dim=(2, 3)).float()
         frac = torch.where(area > 0, inside / area.clamp(min=1.0),
                            torch.zeros_like(area))
         keep = det.valid & (det.scores > score_threshold) & \
             (frac > mask_threshold)
+        boxes, scores = det.boxes, det.scores
+        if mesh is not None:
+            keep, boxes, scores = (mesh.data.gather(t)
+                                   for t in (keep, boxes, scores))
 
         # Global compaction to max_frame_dets slots + bit-packed masks
         # (8 px per byte), so little crosses back to the host.
         t_total, d = keep.shape
-        pri = torch.where(keep, det.scores + 1.0,
-                          torch.zeros_like(det.scores)).reshape(-1)
+        pri = torch.where(keep, scores + 1.0,
+                          torch.zeros_like(scores)).reshape(-1)
         top, idx = top_k_stable(pri, max_frame_dets)
-        sel_masks = F.pad(masks.reshape(t_total * d, th, tw)[idx],
-                          (0, tw_pad - tw))
-        packed = (sel_masks.reshape(max_frame_dets, th, tw_pad // 8, 8)
+        flat = masks.reshape(-1, th, tw)
+        if mesh is None:
+            sel_masks = flat[idx]
+        else:
+            # The slots this rank's tiles hold; the others stay zero.
+            local = idx - rows.start * d
+            own = (local >= 0) & (local < flat.shape[0])
+            sel_masks = flat[local.clamp(0, flat.shape[0] - 1)] \
+                & own[:, None, None]
+        packed = (F.pad(sel_masks, (0, tw_pad - tw))
+                  .reshape(max_frame_dets, th, tw_pad // 8, 8)
                   .to(torch.uint8) * bits).sum(dim=-1).to(torch.uint8)
-        return (det.boxes.reshape(-1, 4)[idx], det.scores.reshape(-1)[idx],
+        if mesh is not None:
+            dist.all_reduce(packed, group=mesh.data.group)
+        return (boxes.reshape(-1, 4)[idx], scores.reshape(-1)[idx],
                 packed, idx, top > 0.5)
 
     # A copy from pageable host memory waits for the card to finish the

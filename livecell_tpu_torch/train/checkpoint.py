@@ -26,15 +26,27 @@ from livecell_tpu_torch.device import resolve_device
 
 def save(path: str, model, optimizer: Optional[torch.optim.Optimizer] = None,
          epoch: Optional[int] = None, train_losses=None, val_metrics=None,
-         param_info: Optional[Dict] = None) -> str:
+         param_info: Optional[Dict] = None, mesh=None) -> str:
     """Write a checkpoint directory (created if missing) of a custom or a
-    transfer model; returns it."""
+    transfer model; returns it. With a mesh (parallel/mesh.py) every rank
+    calls it: the sharded tensors are gathered to their full shape
+    (mesh.full_state), so the checkpoint loads into the no-mesh model,
+    and rank 0 alone writes."""
+    if mesh is not None:
+        from livecell_tpu_torch.parallel.mesh import full_state
+
+        state, opt_state = full_state(model, mesh, optimizer)
+        if not mesh.is_main:
+            return path
+    else:
+        state = model.state_dict()
+        opt_state = optimizer.state_dict() if optimizer is not None else None
     os.makedirs(path, exist_ok=True)
     sd = {k: v.detach().float().cpu() if v.is_floating_point()
-          else v.detach().cpu() for k, v in model.state_dict().items()}
+          else v.detach().cpu() for k, v in state.items()}
     torch.save(sd, os.path.join(path, "model.pt"))
-    if optimizer is not None:
-        torch.save(optimizer.state_dict(), os.path.join(path, "optimizer.pt"))
+    if opt_state is not None:
+        torch.save(opt_state, os.path.join(path, "optimizer.pt"))
     meta = {"epoch": epoch, "train_losses": train_losses,
             "val_metrics": val_metrics, "param_info": param_info}
     with open(os.path.join(path, "meta.json"), "w") as f:

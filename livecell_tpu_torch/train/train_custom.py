@@ -1,8 +1,11 @@
-"""Train the custom Mask R-CNN on one card (counterpart of
+"""Train the custom Mask R-CNN on one card or, under torchrun, on a
+data-parallel mesh of cards (counterpart of
 livecell_tpu/train/train_custom.py, with its flags and defaults).
 
     python -m livecell_tpu_torch.train.train_custom \
         --batch_size 2 --lr 0.001 --num_epochs 5 [--use_wandb]
+    torchrun --nproc_per_node N -m livecell_tpu_torch.train.train_custom \
+        --batch_size 32 ...
 
 Runs on the card; `main([...], device="cpu")` runs on the CPU. The
 step is parallel/train_step.py's (forward, losses, backward, AdamW under
@@ -12,6 +15,12 @@ data/device_data.py:train_epoch, else host batches are prefetched and
 sent one by one, in the same order. Each epoch's sampling uniforms come
 from a generator seeded by (seed, epoch), so a resumed run draws what a
 straight run draws. Checkpoints are train/checkpoint.py directories.
+
+With more than one rank (parallel/mesh.py:trainer_mesh) each rank holds
+the split, takes its rows of every global batch (the device pool's
+slices, or data/multihost.py:ShardedLoader on the host path) and runs
+the mesh step; every rank evaluates its rows of the evaluation batches;
+rank 0 alone prints, saves the (gathered) checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -33,8 +42,10 @@ from livecell_tpu_torch.data.device_data import (
     DeviceDataset, epoch_generator, epoch_indices, fetch_metrics,
     train_epoch)
 from livecell_tpu_torch.device import resolve_device
+from livecell_tpu_torch.data.multihost import ShardedLoader
 from livecell_tpu_torch.models.mask_rcnn import (
     count_parameters, create_model, create_train_model)
+from livecell_tpu_torch.parallel.mesh import main_print, trainer_mesh
 from livecell_tpu_torch.parallel.train_step import (
     build_optimizer, make_eval_step, make_step_fn, scheduled_lr)
 from livecell_tpu_torch.train import checkpoint
@@ -42,6 +53,7 @@ from livecell_tpu_torch.train.coco_eval import evaluate_coco
 from livecell_tpu_torch.train.metrics import evaluate
 from livecell_tpu_torch.train.tracker import Tracker
 from livecell_tpu_torch.utils.prefetch import prefetch
+from livecell_tpu_torch.utils.profiling import enable_nan_debug
 
 
 def device_memory_mb(device) -> float:
@@ -163,8 +175,13 @@ def main(argv=None, config=None, device=None):
     "model_path"."""
     args = build_parser().parse_args(argv)
     dev = resolve_device(device)
+    mesh = trainer_mesh(args.batch_size, dev)
+    main_rank = mesh is None or mesh.is_main
+    print = main_print(mesh)
+    if mesh is not None:
+        dev = mesh.device
     if args.debug_nans:
-        torch.autograd.set_detect_anomaly(True)
+        enable_nan_debug(True)
     cfg = config or Config()
     mcfg = model_config(cfg.model, args)
 
@@ -177,9 +194,11 @@ def main(argv=None, config=None, device=None):
     print(f"  Learning rate: {args.lr}")
     print(f"  Epochs: {args.num_epochs}")
     print(f"  W&B logging: {args.use_wandb}")
+    if mesh is not None:
+        print(f"  Mesh: data {mesh.data_size} x model {mesh.model_size}")
 
     tracker = Tracker(
-        args.use_wandb, args.wandb_project,
+        args.use_wandb and main_rank, args.wandb_project,
         name=f"{args.model}_lr{args.lr}_bs{args.batch_size}"
              f"_ep{args.num_epochs}",
         config={
@@ -249,11 +268,11 @@ def main(argv=None, config=None, device=None):
         pool = DeviceDataset.from_packed(train_ds, device=dev)
         print(f"  Device-resident training data: "
               f"{pool.nbytes / 2**20:.0f} MB for {len(pool)} tiles")
-    step = make_step_fn(model, opt)
+    step = make_step_fn(model, opt, mesh)
     # The serving copy the evaluations run: the trained weights cast to
     # the compute dtype, batch norm on its running statistics.
     eval_model = create_model(mcfg, device=dev)
-    eval_step = make_eval_step(eval_model, device=dev)
+    eval_step = make_eval_step(eval_model, device=dev, mesh=mesh)
     eval_bs = args.eval_batch_size or args.batch_size
 
     def evaluate_split(ds):
@@ -273,17 +292,24 @@ def main(argv=None, config=None, device=None):
         if pool is not None:
             idx_mat = epoch_indices(len(pool), args.batch_size, True,
                                     args.seed + epoch)
-            m = train_epoch(model, opt, pool, idx_mat, gen)
+            m = train_epoch(model, opt, pool, idx_mat, gen, mesh)
             mems.append(device_memory_mb(dev))
         else:
             rows = []
-            for images, targets, _ in prefetch(train_ds.batches(
-                    args.batch_size, shuffle=True, seed=args.seed + epoch,
-                    drop_last=True)):
-                rows.append(step(
-                    torch.from_numpy(images).to(dev),
-                    {k: torch.from_numpy(v).to(dev)
-                     for k, v in targets.items()}, generator=gen))
+            if mesh is not None:
+                batches = ShardedLoader(train_ds, mesh, args.batch_size,
+                                        shuffle=True, seed=args.seed
+                                        ).epoch(epoch)
+            else:
+                batches = ((torch.from_numpy(images).to(dev),
+                            {k: torch.from_numpy(v).to(dev)
+                             for k, v in targets.items()})
+                           for images, targets, _ in prefetch(
+                               train_ds.batches(
+                                   args.batch_size, shuffle=True,
+                                   seed=args.seed + epoch, drop_last=True)))
+            for images, targets in batches:
+                rows.append(step(images, targets, generator=gen))
                 mems.append(device_memory_mb(dev))
             m = fetch_metrics(rows)
         epoch_time = time.time() - t_epoch
@@ -341,15 +367,15 @@ def main(argv=None, config=None, device=None):
             checkpoint.save(
                 f"models/{args.model}_maskrcnn_epoch{epoch}.ckpt", model,
                 opt, epoch=epoch, train_losses=train_losses,
-                val_metrics=val_history, param_info=param_info)
+                val_metrics=val_history, param_info=param_info, mesh=mesh)
 
     model_path = f"models/{args.model}_maskrcnn_{args.num_epochs}epochs.ckpt"
     checkpoint.save(model_path, model, opt, epoch=args.num_epochs,
                     train_losses=train_losses, val_metrics=val_history,
-                    param_info=param_info)
+                    param_info=param_info, mesh=mesh)
     print(f"\nModel saved to {model_path}")
 
-    if val_history:
+    if val_history and main_rank:
         plot_path = f"outputs/{args.model}_training_plot.png"
         try:
             save_training_plot(train_losses, val_history, plot_path)

@@ -1,6 +1,7 @@
 """Two-stage transfer fine-tuning of the R50-FPN Mask R-CNN on one card
-(counterpart of livecell_tpu/train/train_transfer.py: FROZEN_STAGE1,
-stage_optimizer, main).
+or, under torchrun, on a data-parallel mesh of cards (counterpart of
+livecell_tpu/train/train_transfer.py: FROZEN_STAGE1, stage_optimizer,
+main).
 
 Stage 1 trains the heads with the backbone, FPN and RPN frozen; stage 2
 trains everything; both with SGD, momentum and weight decay, each stage
@@ -14,7 +15,10 @@ Runs on the card; `main([...], device="cpu")` runs on the CPU. Without
 --pretrained the weights come from the seed; --pretrained takes a local
 torchvision maskrcnn_resnet50_fpn state dict (nothing is downloaded).
 The final checkpoint records the transfer model's config, so it loads
-and serves through serve/app.py.
+and serves through serve/app.py. With more than one rank the mesh works
+as in train/train_custom.py (rank 0 prints and saves). --mfu prints
+each stage's analytic step FLOPs (utils/flops.py) and the step's MFU
+against the card's dense bf16 peak (`mfu_report`).
 """
 
 from __future__ import annotations
@@ -33,14 +37,18 @@ from livecell_tpu_torch.data.dataset import get_datasets
 from livecell_tpu_torch.data.device_data import (
     DeviceDataset, epoch_generator, epoch_indices, fetch_metrics,
     train_epoch)
+from livecell_tpu_torch.data.multihost import ShardedLoader
 from livecell_tpu_torch.device import resolve_device
 from livecell_tpu_torch.models.torch_import import load_torchvision_weights
 from livecell_tpu_torch.models.transfer import create_transfer_model
+from livecell_tpu_torch.parallel.mesh import main_print, trainer_mesh
 from livecell_tpu_torch.parallel.train_step import (
     make_eval_step, make_step_fn)
 from livecell_tpu_torch.train import checkpoint
 from livecell_tpu_torch.train.coco_eval import evaluate_coco_multi
 from livecell_tpu_torch.train.metrics import evaluate
+from livecell_tpu_torch.utils.flops import count_flops, mfu_report
+from livecell_tpu_torch.utils.profiling import time_fn
 
 FROZEN_STAGE1 = ("backbone", "fpn", "rpn")
 
@@ -125,6 +133,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "recorded in the sidecar (the model's batch "
                              "norm uses its running statistics either "
                              "way). auto: on with --pretrained")
+    parser.add_argument("--mfu", action="store_true",
+                        help="print step TFLOPs + MFU per stage "
+                             "(analytic count, utils/flops.py)")
     return parser
 
 
@@ -136,6 +147,13 @@ def main(argv=None, transfer_cfg=None, device=None):
     the checkpoint's "model_path"."""
     args = build_parser().parse_args(argv)
     dev = resolve_device(device)
+    mesh = trainer_mesh(args.batch_size, dev)
+    main_rank = mesh is None or mesh.is_main
+    print = main_print(mesh)
+    if mesh is not None:
+        dev = mesh.device
+        if args.track_preds:
+            raise ValueError("--track_preds runs on one card")
     cfg = Config()
     tcfg = transfer_cfg or TransferConfig()
     want_frozen = (args.frozen_bn == "on" or
@@ -182,7 +200,7 @@ def main(argv=None, transfer_cfg=None, device=None):
     # The serving copy the evaluations run (create_transfer_model's eval
     # form), loaded with the trained weights before each use.
     eval_model = create_transfer_model(tcfg, device=dev)
-    eval_step = make_eval_step(eval_model, device=dev)
+    eval_step = make_eval_step(eval_model, device=dev, mesh=mesh)
     eval_bs = args.eval_batch_size or args.batch_size
     history: List[Dict] = []
     stage_seconds: Dict[int, List[float]] = {}
@@ -207,7 +225,7 @@ def main(argv=None, transfer_cfg=None, device=None):
                                     for t in (det.boxes, det.scores,
                                               det.valid))
             for i in range(images.shape[0]):
-                if done >= args.visualize_samples:
+                if done >= args.visualize_samples or not main_rank:
                     return
                 gtb = targets["boxes"][i][targets["valid"][i]]
                 stats = prediction_panels(
@@ -227,7 +245,26 @@ def main(argv=None, transfer_cfg=None, device=None):
         opt = stage_optimizer(model, lr, cfg.transfer.momentum,
                               cfg.transfer.weight_decay, freeze,
                               args.clip_grad_norm)
-        step = make_step_fn(model, opt)
+        step = make_step_fn(model, opt, mesh)
+        if args.mfu and main_rank:
+            # One step of the stage's first batch on a copy of the model
+            # and a fresh stage optimizer, so training does not move.
+            copy = create_transfer_model(tcfg, device=dev, train=True)
+            copy.load_state_dict(model.state_dict())
+            copy_step = make_step_fn(copy, stage_optimizer(
+                copy, lr, cfg.transfer.momentum, cfg.transfer.weight_decay,
+                freeze, args.clip_grad_norm))
+            images, targets, _ = next(train_ds.batches(
+                args.batch_size, shuffle=False, drop_last=True))
+            batch = (torch.from_numpy(images).to(dev),
+                     {k: torch.from_numpy(v).to(dev)
+                      for k, v in targets.items()})
+            gen = torch.Generator(device=dev).manual_seed(0)
+            flops = count_flops(copy_step, *batch, generator=gen)
+            seconds = time_fn(copy_step, *batch, generator=gen)["median_s"]
+            print(f"  analytic step FLOPs: {flops / 1e12:.3f} TFLOP "
+                  f"({flops:.0f} FLOP)")
+            print(f"  {mfu_report(flops, seconds, dev)}")
         print(f"\n=== Stage {stage}: lr={lr} freeze={freeze} "
               f"({epochs} epochs) ===")
         stage_seconds[stage], stage_img_per_s[stage] = [], []
@@ -238,16 +275,21 @@ def main(argv=None, transfer_cfg=None, device=None):
             pred_counts = []
             if pool is not None:
                 m = train_epoch(model, opt, pool, epoch_indices(
-                    len(pool), args.batch_size, True, seed), gen)
+                    len(pool), args.batch_size, True, seed), gen, mesh)
             else:
                 rows = []
-                for images, targets, _ in train_ds.batches(
-                        args.batch_size, shuffle=True, seed=seed,
-                        drop_last=True):
-                    images = torch.from_numpy(images).to(dev)
-                    rows.append(step(images, {
-                        k: torch.from_numpy(v).to(dev)
-                        for k, v in targets.items()}, generator=gen))
+                if mesh is not None:
+                    batches = ShardedLoader(train_ds, mesh, args.batch_size,
+                                            shuffle=True, seed=seed).epoch(0)
+                else:
+                    batches = ((torch.from_numpy(images).to(dev),
+                                {k: torch.from_numpy(v).to(dev)
+                                 for k, v in targets.items()})
+                               for images, targets, _ in train_ds.batches(
+                                   args.batch_size, shuffle=True, seed=seed,
+                                   drop_last=True))
+                for images, targets in batches:
+                    rows.append(step(images, targets, generator=gen))
                     if args.track_preds:
                         sync_eval()
                         det = eval_step(images)
@@ -280,7 +322,7 @@ def main(argv=None, transfer_cfg=None, device=None):
     run_stage(2, args.stage2_epochs, args.stage2_lr, freeze=False)
 
     path = "models/maskrcnn_resnet50_two_stage.ckpt"
-    checkpoint.save(path, model)
+    checkpoint.save(path, model, mesh=mesh)
     print(f"\nModel saved to {path}")
 
     out = dict(model=model, history=history, stage_seconds=stage_seconds,

@@ -33,16 +33,18 @@ from livecell_tpu.data.tiling import LIVECellPreprocessor
 from livecell_tpu.train import train_custom as jtc
 from livecell_tpu.train import train_transfer as jtt
 from livecell_tpu_torch.config import (
-    Config, TransferConfig, model_config_from_dict)
+    Config, ModelConfig, TransferConfig, model_config_from_dict)
 from livecell_tpu_torch.models.mask_rcnn import (
-    count_parameters, create_model)
+    count_parameters, create_model, create_train_model)
 from livecell_tpu_torch.models.torch_import import load_torchvision_weights
 from livecell_tpu_torch.models.transfer import create_transfer_model
-from livecell_tpu_torch.parallel.train_step import scheduled_lr
+from livecell_tpu_torch.data.dataset import get_datasets
+from livecell_tpu_torch.parallel.train_step import make_step_fn, scheduled_lr
 from livecell_tpu_torch.train import train_custom as tc
 from livecell_tpu_torch.train import train_transfer as tt
 from livecell_tpu_torch.train.checkpoint import load_model_state
 from livecell_tpu_torch.train.train_transfer import FROZEN_STAGE1
+from livecell_tpu_torch.utils.flops import count_flops
 from tests.test_model import TINY
 from tests.test_transfer import TINY as JAX_TTINY
 from tests.util_fakedata import make_fake_livecell
@@ -538,7 +540,69 @@ def test_transfer_pretrained_weights(split, monkeypatch, tmp_path):
     assert cfg == PORT_TTINY
 
 
-@pytest.mark.parametrize("flag", [["--mfu"]])
-def test_transfer_parser_refuses_flags_not_ported(flag):
-    with pytest.raises(SystemExit):
-        tt.build_parser().parse_args(flag)
+def test_transfer_mfu_prints_the_step_flops(split, monkeypatch, tmp_path,
+                                            capsys):
+    """--mfu prints, for each stage, count_flops of one step of the
+    stage's first batch (the count depends on the shapes alone, so any
+    weights and either stage's optimizer count the same), and on the CPU
+    an MFU of "unknown"."""
+    run_transfer(["--stage1_epochs", "0", "--stage2_epochs", "0",
+                  "--mfu"], tmp_path, monkeypatch, split)
+    out = capsys.readouterr().out
+    dcfg = ModelConfig(max_instances=PORT_TTINY.max_instances,
+                       mask_size=PORT_TTINY.mask_size,
+                       image_height=PORT_TTINY.tile_height,
+                       image_width=PORT_TTINY.tile_width)
+    ds = get_datasets(str(split), dcfg, device="cpu")["train"]
+    images, targets, _ = next(ds.batches(4, shuffle=False, drop_last=True))
+    model = create_transfer_model(PORT_TTINY, device="cpu", train=True)
+    want = count_flops(
+        make_step_fn(model, tt.stage_optimizer(model, 5e-3, 0.9, 1e-4, True)),
+        torch.from_numpy(images),
+        {k: torch.from_numpy(v) for k, v in targets.items()},
+        generator=torch.Generator().manual_seed(0))
+    lines = [ln for ln in out.splitlines() if "analytic step FLOPs" in ln]
+    assert lines == [f"  analytic step FLOPs: {want / 1e12:.3f} TFLOP "
+                     f"({want:.0f} FLOP)"] * 2
+    assert out.count("MFU unknown") == 2
+
+
+def test_custom_cli_on_a_two_rank_mesh(split, monkeypatch, tmp_path):
+    """Under torchrun's environment with two ranks (gloo on the CPU) the
+    custom CLI trains on a data-parallel mesh: host batches through
+    ShardedLoader (--device_data off), the same global losses on both
+    ranks, rank 0 alone printing the epochs and writing the checkpoint,
+    which loads into the no-mesh model. With --lr 0 the weights stay,
+    so the epoch's mean loss compares the mesh's forwards with the
+    single process's over the same batches: 1e-5 relative."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from tests import torch_mesh_worker
+
+    argv = ["--data_dir", str(split), "--batch_size", "4", "--num_epochs",
+            "1", "--device_data", "off", "--lr", "0"] + FLAGSHIP
+    (tmp_path / "mesh").mkdir()
+    torch.save(jax_config_to_dict(TINY), tmp_path / "cfg.pt")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(torch_mesh_worker.cli_rank, nprocs=2,
+                       start_method="spawn",
+                       args=(2, port, argv, str(tmp_path / "mesh"),
+                             str(tmp_path)))
+    ranks = [torch.load(tmp_path / f"cli{r}.pt", weights_only=False)
+             for r in range(2)]
+    assert ranks[0]["train_losses"] == ranks[1]["train_losses"]
+    assert "Epoch 1 Training" in ranks[0]["printed"]
+    assert "Epoch 1 Training" not in ranks[1]["printed"]
+    assert "Mesh: data 2 x model 1" in ranks[0]["printed"]
+    path = tmp_path / "mesh" / "models" / "custom_maskrcnn_1epochs.ckpt"
+    _, cfg, sd = load_model_state(str(path), "cpu")
+    create_train_model(cfg, device="cpu").load_state_dict(sd, strict=True)
+
+    (tmp_path / "single").mkdir()
+    single = run_custom(argv[4:], tmp_path / "single", monkeypatch, split)
+    np.testing.assert_allclose(ranks[0]["train_losses"],
+                               single["train_losses"], rtol=1e-5)
