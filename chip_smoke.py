@@ -1451,56 +1451,11 @@ def phase_transfer_e2e() -> dict:
 # of the reference's default preprocessing (100 A172 frames, 70/15/15).
 SPLIT_FRAMES, FRAME_W, FRAME_H = 15, 704, 520
 EVAL_B_CUSTOM, EVAL_B_TRANSFER = 32, 4
-# LIVECell's per-frame statistics (tests/util_fakedata.py): ~305
-# instances a 704x520 frame, lognormal equivalent radius of median 10 px,
-# elongation up to 3:1.
-LIVECELL_MEAN_INSTANCES = 305
-LIVECELL_RADIUS_MEDIAN, LIVECELL_RADIUS_SIGMA, LIVECELL_MAX_ASPECT = \
-    10.0, 0.45, 3.0
-# The "sparse" split of scripts/make_synth_splits.py, on which the JAX
-# package's quality runs were measured (STATUS.md "Round 3"): 12 cells a
-# frame, 14/3/3 frames -> 350/75/75 tiles.
+# The "sparse" split of tools/synth_splits.py, on which the JAX package's
+# quality runs were measured (STATUS.md "Round 3"): 12 cells a frame,
+# 14/3/3 frames -> 350/75/75 tiles.
 SPARSE_CELLS = 12
 SPARSE_FRAMES = (("train", 14), ("val", 3), ("test", 3))
-
-
-def ellipse_polygon(cx, cy, rx, ry, n=16, theta=0.0):
-    """Flat polygon of an ellipse rotated by `theta` radians (a copy of
-    tests/util_fakedata.py:ellipse_polygon)."""
-    ct, st = math.cos(theta), math.sin(theta)
-    pts = []
-    for i in range(n):
-        a = 2 * math.pi * i / n
-        ex, ey = rx * math.cos(a), ry * math.sin(a)
-        pts.extend([cx + ex * ct - ey * st, cy + ex * st + ey * ct])
-    return pts
-
-
-def sample_livecell_instances(rng, frame_w, frame_h,
-                              mean_count=LIVECELL_MEAN_INSTANCES):
-    """(cx, cy, rx, ry, theta) tuples with LIVECell's per-frame count and
-    size statistics (a copy of tests/util_fakedata.py's, which imports
-    PIL)."""
-    count = max(1, int(rng.normal(mean_count, mean_count * 0.25)))
-    out = []
-    for _ in range(count):
-        r = LIVECELL_RADIUS_MEDIAN * math.exp(
-            rng.normal(0.0, LIVECELL_RADIUS_SIGMA))
-        aspect = rng.uniform(1.0, LIVECELL_MAX_ASPECT)
-        rx, ry = r * math.sqrt(aspect), r / math.sqrt(aspect)
-        out.append((rng.uniform(5, frame_w - 5), rng.uniform(5, frame_h - 5),
-                    rx, ry, rng.uniform(0, math.pi)))
-    return out
-
-
-def sample_sparse_instances(rng, frame_w, frame_h, count=SPARSE_CELLS):
-    """(cx, cy, rx, ry, theta) tuples of the "sparse" split
-    (scripts/make_synth_splits.py): `count` axis-aligned ellipses, centres
-    30 px or more from the border, radii 12-30 px (a copy of
-    tests/util_fakedata.py's uniform mode, which draws with PIL)."""
-    return [(rng.uniform(30, frame_w - 30), rng.uniform(30, frame_h - 30),
-             rng.uniform(12, 30), rng.uniform(12, 30), 0.0)
-            for _ in range(count)]
 
 
 def draw_split(root, seed: int, mode: str = "livecell",
@@ -1508,12 +1463,16 @@ def draw_split(root, seed: int, mode: str = "livecell",
     """Grey frames drawn with numpy with their polygon annotations, cut
     into tiles by the port's tiler and written with its PNG encoder as
     the splits of a tiled tree under `root`: `frames` gives each split's
-    frame count. `mode` "livecell": LIVECell's statistics, cells 120-220
-    on 30 with noise of sigma 8; "sparse": 12 ellipses a frame, 120-220
-    on 30, no noise. Returns {split: {"frames": [grey frames],
+    frame count. The cell samplers are tools/synth_splits.py's; the
+    drawing (the noise, ids counted per split) is this function's own.
+    `mode` "livecell": LIVECell's statistics, cells 120-220 on 30 with
+    noise of sigma 8; "sparse": 12 ellipses a frame, 120-220 on 30, no
+    noise. Returns {split: {"frames": [grey frames],
     "annotations": [each frame's polygon annotations]}}."""
     from livecell_tpu_torch.data.coco import polygons_to_mask
     from livecell_tpu_torch.data.tiling import TILES_PER_IMAGE, tile_frame
+    from livecell_tpu_torch.tools.synth_splits import (
+        ellipse_polygon, sample_livecell_instances, sample_uniform_instances)
 
     rng = np.random.default_rng(seed)
     out = {}
@@ -1526,7 +1485,8 @@ def draw_split(root, seed: int, mode: str = "livecell",
             anns = []
             cells = (sample_livecell_instances(rng, FRAME_W, FRAME_H)
                      if mode == "livecell" else
-                     sample_sparse_instances(rng, FRAME_W, FRAME_H))
+                     sample_uniform_instances(rng, FRAME_W, FRAME_H,
+                                              SPARSE_CELLS))
             for cx, cy, rx, ry, theta in cells:
                 poly = ellipse_polygon(cx, cy, rx, ry, theta=theta)
                 canvas[polygons_to_mask([poly], FRAME_H, FRAME_W) > 0] = \
@@ -2947,6 +2907,332 @@ def phase_mesh_gloo(cfg) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The quality tools (phase 19).
+# ---------------------------------------------------------------------------
+# A dense split (500 cells a frame, ~111 instances a tile) of 4/1/1
+# frames: the tiler's 70/15/15 selection of 6 frames keeps 4/0/1 of
+# them, 100 training tiles and 25 test tiles, and no validation split.
+DENSE_FRAMES = (4, 1, 1)
+GT_CAPS = {"reference": ["--dets", "50", "--det_nms", "0.5"],
+           "lifted": ["--dets", "256", "--det_nms", "0.6"]}
+EVAL_LIFTED = ["--dets", "256", "--infer_nms", "0.7", "--det_nms", "0.6"]
+ORACLE_TILES, ORACLE_B = 16, 8
+A4X_SIZES = (8, 16, 32, 64)
+# The transfer CLI's --track_preds on two ranks: one step of batch 4.
+TRACK_TILES = 4
+TRACK_CLI = ["--batch_size", "4", "--stage1_epochs", "1", "--stage2_epochs",
+             "0", "--clip_grad_norm", "10", "--device_data", "off",
+             "--track_preds"]
+
+
+def track_cfg():
+    """The transfer model of phase 19 (g): TransferConfig() in f32."""
+    from livecell_tpu_torch.config import TransferConfig
+    return dataclasses.replace(TransferConfig(), compute_dtype="float32")
+
+
+def track_preds_rank(rank: int, port: int, argv: list, cwd: str,
+                     out_dir: str) -> None:
+    """One of two ranks of the transfer CLI with --track_preds on the
+    card (phase 19 (g)), under torchrun's environment with both ranks on
+    device 0 over gloo (NCCL refuses two ranks a device; the trainer
+    takes the process group made here), f32 and PyTorch's own
+    convolutions as in gloo_rank; writes what the rank printed."""
+    import contextlib
+    import io
+    import os
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from livecell_tpu_torch.train import train_transfer
+
+    os.environ.update(WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.enabled = False
+    dist.init_process_group("gloo", timeout=timedelta(seconds=300))
+    try:
+        os.chdir(cwd)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train_transfer.main(argv, transfer_cfg=track_cfg())
+        (Path(out_dir) / f"rank{rank}.txt").write_text(buf.getvalue())
+    finally:
+        dist.destroy_process_group()
+
+
+def trim_split(split: Path, n: int) -> None:
+    """Keep the first `n` tiles of each annotation file under `split`."""
+    for path in (split / "annotations").glob("*.json"):
+        d = json.loads(path.read_text())
+        keep = {im["id"] for im in d["images"][:n]}
+        d["images"] = [im for im in d["images"] if im["id"] in keep]
+        d["annotations"] = [a for a in d["annotations"]
+                            if a["image_id"] in keep]
+        path.write_text(json.dumps(d))
+
+
+def recorded_k12_cases(cra, rec: dict, scope: str, label: str) -> list:
+    """K1/K2 against their plain versions on every RoIAlign pass the
+    recorders kept under `scope`."""
+    cases = []
+    for i, (boxes, _, out, ratio, scale, _) in enumerate(
+            rec["roi_weights"].calls[scope]):
+        feat = rec["roi_align_fwd"].calls[scope][i][0]
+        cases += k12_cases(cra, feat, boxes, out, ratio, scale,
+                           f"{label} pass {i + 1}")
+    for c in cases:
+        log("[kernels]", json.dumps(c))
+    return cases
+
+
+def phase_quality_tools(root: Path, ckpt: str, sparse: str, cli: dict
+                        ) -> dict:
+    """19. The quality tools (livecell_tpu_torch/tools/) at full width
+    (phase 15's checkpoint: ModelConfig(), bf16) under `root`: (a) a
+    dense split, its auto slot count above 128; (b) gt_bound's ceilings
+    at reference and lifted caps; (c) eval_ckpt on phase 15's checkpoint
+    and split (`sparse`): the reference-caps row equal to phase 15's test
+    mask AP/AP50/AP75 and box F1 within 1e-4, the lifted-caps row and
+    the dense split's, K1/K2 twice per eval batch; (d) K1/K2 against
+    their plain versions on the inputs eval_ckpt gave them at lifted
+    caps (16 x 256); (e) oracle_probe on 16 dense tiles: arm A's mean
+    IoU >= 0.95, arms B and C finite, K1/K2 three times per batch, and
+    K1/K2 against their plain versions on arm B's GT boxes (K = the
+    split's slot count); (f) quality_matrix through its subprocess path
+    on the dense split for one epoch: the child trainer's slot count
+    above 128 (K4 in fixed mode over two or more 128-slot GT tiles),
+    both rows parsed; K4 full and max-only, exact against its plain
+    version, on the first training batch's GT at 38,304 anchors and at
+    the a4x recipe's 51,072; (g) the transfer CLI with --track_preds on
+    two gloo ranks on the card against one process: the printed counts
+    equal."""
+    import contextlib
+    import io
+    import os
+
+    import torch.multiprocessing as mp
+
+    from livecell_tpu_torch.config import ModelConfig
+    from livecell_tpu_torch.data.dataset import get_datasets, instance_slots
+    from livecell_tpu_torch.data.device_data import epoch_indices
+    from livecell_tpu_torch.ops import cuda_match as cm
+    from livecell_tpu_torch.ops import cuda_roi_align as cra
+    from livecell_tpu_torch.ops.anchors import generate_anchors
+    from livecell_tpu_torch.tools import (
+        eval_ckpt, gt_bound, oracle_probe, quality_matrix, synth_splits)
+    from livecell_tpu_torch.train import train_transfer
+
+    secs, res, cases = {}, {}, []
+    t0 = time.perf_counter()
+
+    def part(name):
+        nonlocal t0
+        secs[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    # (a) The dense split and its slot count.
+    dense_root = root / "dense"
+    synth_splits.build("dense", dense_root, DENSE_FRAMES, SEED)
+    dense = str(dense_root / "split")
+    dsets = get_datasets(dense, ModelConfig(), device="cuda")
+    counts = np.concatenate([d.instance_counts() for d in dsets.values()])
+    slots = instance_slots(int(counts.max()))
+    res["dense_split"] = dict(
+        tiles={k: len(d) for k, d in dsets.items()},
+        instances_per_tile_mean=float(counts.mean()),
+        instances_per_tile_max=int(counts.max()), slots=slots)
+    log("[quality] dense split", json.dumps(res["dense_split"]))
+    if not slots > 128:
+        raise AssertionError(f"dense split slots {slots}, expected > 128")
+    part("a_split")
+
+    # (b) The model-free ceilings.
+    res["gt_bound"] = {caps: gt_bound.main(["--data_dir", dense] + argv)
+                       for caps, argv in GT_CAPS.items()}
+    for caps, r in res["gt_bound"].items():
+        log(f"[quality] gt_bound dense {caps} ({r['dets']} dets, NMS "
+            f"{r['det_nms']}): segm AP {r['segm_AP']} bbox AP "
+            f"{r['bbox_AP']} over {r['n_gt_total']} GT in {r['n_tiles']} "
+            f"tiles")
+        if not 0 < r["segm_AP"] <= 1:
+            raise AssertionError(f"gt_bound {caps}: {r}")
+    part("b_gt_bound")
+
+    # (c), (d) eval_ckpt on phase 15's checkpoint: its own split at the
+    # reference caps (phase 15's numbers), lifted caps (K1/K2's inputs
+    # recorded), and the dense split.
+    counters = {"roi_weights": cra.roi_weights,
+                "roi_align_fwd": cra.roi_align_fwd}
+    rec = {k: Recorder(fn, 2) for k, fn in counters.items()}
+    recs = list(rec.values())
+    rows, eval_launches = {}, {}
+    with patched(cra, rec):
+        for label, data, caps in (("sparse reference", sparse, []),
+                                  ("sparse lifted", sparse, EVAL_LIFTED),
+                                  ("dense lifted", dense, EVAL_LIFTED)):
+            fn = eval_ckpt.evaluate_coco_multi
+            if label == "sparse lifted":
+                fn = scoped(fn, recs, "eval")
+            for c in counters.values():
+                c.launches = 0
+            with patched(eval_ckpt, {"evaluate_coco_multi": fn}):
+                rows[label] = eval_ckpt.main(
+                    ["--ckpt", ckpt, "--data_dir", data] + caps)
+            torch.cuda.synchronize()
+            tiles = len(dsets["test"]) if data == dense else \
+                sparse_tiles("test")
+            batches = math.ceil(tiles / 16)
+            eval_launches[label] = {k: c.launches / batches
+                                    for k, c in counters.items()}
+            log(f"[quality] eval_ckpt {label}: {json.dumps(rows[label])}; "
+                f"launches per batch {eval_launches[label]}")
+    want = cli["test_mask_ap"]
+    gaps = {"mask_AP": rows["sparse reference"]["mask_AP"] - want["AP"],
+            "mask_AP50": rows["sparse reference"]["mask_AP50"]
+            - want["AP50"],
+            "mask_AP75": rows["sparse reference"]["mask_AP75"]
+            - want["AP75"],
+            "f1": rows["sparse reference"]["f1"] - cli["test"]["f1_score"]}
+    log(f"[quality] eval_ckpt vs phase 15's test metrics: gaps "
+        f"{json.dumps(gaps)} (tol 1e-4)")
+    if not (all(abs(g) <= 1e-4 for g in gaps.values())
+            and all(v == {"roi_weights": 2, "roi_align_fwd": 2}
+                    for v in eval_launches.values())
+            and rows["sparse lifted"]["dets"] == 256):
+        raise AssertionError(f"eval_ckpt: gaps {gaps}, launches "
+                             f"{eval_launches}")
+    res.update(eval_rows=rows, eval_gaps=gaps,
+               launches_per_eval_batch=eval_launches["sparse lifted"])
+    part("c_eval_ckpt")
+    cases += recorded_k12_cases(cra, rec, "eval", "eval_ckpt lifted caps")
+    del rec, recs
+    torch.cuda.empty_cache()
+    part("d_eval_kernels")
+
+    # (e) The oracle probe on the dense split.
+    rec = {k: Recorder(fn, 1) for k, fn in counters.items()}
+    for c in counters.values():
+        c.launches = 0
+    with patched(cra, rec), patched(oracle_probe, {
+            "oracle_mask_probs": scoped(oracle_probe.oracle_mask_probs,
+                                        list(rec.values()), "oracle")}):
+        report = oracle_probe.main(
+            ["--ckpt", ckpt, "--data_dir", dense, "--batch_size",
+             str(ORACLE_B), "--max_images", str(ORACLE_TILES), "--out",
+             str(root / "oracle.json")])
+    torch.cuda.synchronize()
+    batches = math.ceil(report["images"] / ORACLE_B)
+    oracle_launches = {k: c.launches / batches for k, c in counters.items()}
+    means = {arm: report[arm]["mean"] for arm in oracle_probe.ARMS}
+    log(f"[quality] oracle_probe {report['images']} dense tiles: means "
+        f"{json.dumps(means)}; frac>=0.75 "
+        f"{json.dumps({a: report[a]['frac_ge_75'] for a in means})}; "
+        f"launches per batch {oracle_launches}")
+    if not (report["images"] == ORACLE_TILES
+            and means["quant_ceiling"] >= 0.95
+            and all(math.isfinite(v) for v in means.values())
+            and oracle_launches == {"roi_weights": 3, "roi_align_fwd": 3}):
+        raise AssertionError(f"oracle_probe: {means}, {oracle_launches}")
+    res.update(oracle=report, launches_per_oracle_batch=oracle_launches)
+    cases += recorded_k12_cases(cra, rec, "oracle", "oracle arm B")
+    del rec
+    torch.cuda.empty_cache()
+    part("e_oracle")
+
+    # (f) The quality matrix through its subprocess path.
+    children = []
+
+    def runner(cmd, **kw):
+        r = subprocess.run(cmd, **kw)
+        children.append((cmd, r))
+        return r
+
+    matrix = quality_matrix.main(
+        ["--splits", f"dense:{dense_root}", "--epochs", "1", "--out",
+         str(root / "matrix.jsonl")], runner=runner)
+    train_out = children[0][1].stdout
+    line = next((ln for ln in train_out.splitlines()
+                 if "Instance slots:" in ln), "")
+    child_slots = int(line.split("->")[1].split()[0]) if line else 0
+    log(f"[quality] quality_matrix child trainer: {line.strip()}")
+    for r in matrix:
+        log(f"[quality] quality_matrix {r['split']}/{r['caps']}: "
+            f"{json.dumps(r)}")
+    if not (child_slots == slots > 128 and len(matrix) == 2
+            and all(math.isfinite(r["mask_AP"]) for r in matrix)):
+        raise AssertionError(f"quality_matrix: slots {child_slots}, rows "
+                             f"{matrix}")
+    res.update(matrix=matrix, matrix_child_slots=child_slots)
+    part("f_matrix")
+    # K4 on the child's first training batch (seed 0, epoch 1: the
+    # index matrix of seed 1) at the flagship's anchors and at a4x's.
+    train = dsets["train"]
+    train.cfg = dataclasses.replace(ModelConfig(), max_instances=slots)
+    _, targets = train.gather(epoch_indices(len(train), CUSTOM_B, True,
+                                            SEED + 1)[0])
+    gt = torch.from_numpy(targets["boxes"]).cuda()
+    valid = torch.from_numpy(targets["valid"]).cuda()
+    cfg = ModelConfig()
+    for label, sizes in (("flagship", cfg.anchor_sizes),
+                         ("a4x", A4X_SIZES)):
+        anchors = torch.from_numpy(generate_anchors(
+            (cfg.feature_height, cfg.feature_width), cfg.anchor_stride,
+            sizes, cfg.anchor_ratios)).cuda()
+        for full in (True, False):
+            cases.append(k4_case(cm, anchors, gt, valid, full,
+                                 f"dense {label} B={CUSTOM_B} I={slots} "
+                                 f"A={len(anchors)}"))
+            log("[kernels]", json.dumps(cases[-1]))
+    del gt, valid, anchors
+    torch.cuda.empty_cache()
+    part("f_k4")
+
+    # (g) --track_preds on two gloo ranks against one process.
+    track = root / "track"
+    synth_splits.build("sparse", track, (1, 1, 1), SEED)
+    trim_split(track / "split", TRACK_TILES)
+    argv = ["--data_dir", str(track / "split")] + TRACK_CLI
+    for d in ("mesh", "single"):
+        (track / d).mkdir()
+    mp.start_processes(track_preds_rank, args=(
+        free_port(), argv, str(track / "mesh"), str(track)), nprocs=2,
+        start_method="spawn")
+    printed = [(track / f"rank{r}.txt").read_text() for r in range(2)]
+    cwd = os.getcwd()
+    buf = io.StringIO()
+    torch.backends.cudnn.enabled = False      # as in track_preds_rank
+    try:
+        os.chdir(track / "single")
+        with contextlib.redirect_stdout(buf):
+            train_transfer.main(argv, transfer_cfg=track_cfg())
+    finally:
+        os.chdir(cwd)
+        torch.backends.cudnn.enabled = True
+
+    def counts(text):
+        return [ln.strip() for ln in text.splitlines() if "preds>0.5" in ln]
+
+    res["track_preds"] = dict(mesh=counts(printed[0]),
+                              rank1=counts(printed[1]),
+                              single=counts(buf.getvalue()))
+    log(f"[quality] --track_preds: {json.dumps(res['track_preds'])}")
+    if not (len(res["track_preds"]["mesh"]) == 1
+            and res["track_preds"]["mesh"] == res["track_preds"]["single"]
+            and not res["track_preds"]["rank1"]):
+        raise AssertionError(f"--track_preds on two ranks: "
+                             f"{res['track_preds']}")
+    torch.cuda.empty_cache()
+    part("g_track_preds")
+
+    res.update(parts_s=secs, cases=cases)
+    log(f"[quality] parts (s) {json.dumps(secs)}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3066,16 +3352,20 @@ def main() -> int:
 
     # 15.-16. the trainer CLIs, each on its own "sparse" split and from
     # its own working directory, both removed when the phase ends; their
-    # checkpoints are copied aside for phase 17.
+    # checkpoints are copied aside for phase 17, and the custom one with
+    # its split for phase 19.
     # 17. the serve front ends over both trained checkpoints.
     with tempfile.TemporaryDirectory() as kept:
         ckpts = {"custom": str(Path(kept) / "custom"),
                  "transfer": str(Path(kept) / "transfer")}
+        sparse = Path(kept) / "sparse"
         with tempfile.TemporaryDirectory() as tmp:
             with Phase(15, "custom trainer CLI"):
                 cli_custom = phase_custom_cli(Path(tmp), frame)
             shutil.copytree(Path(tmp) / cli_custom["model_path"],
                             ckpts["custom"])
+            shutil.copytree(tmp, sparse, ignore=shutil.ignore_patterns(
+                "models", "outputs"))
         cases += cli_custom["cases"]
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tmp:
@@ -3091,12 +3381,21 @@ def main() -> int:
         cases += fronts["cases"]
         torch.cuda.empty_cache()
 
-    # 18. the mesh: FLOPs and MFU, world size 1 over NCCL, two ranks on
-    # the card over gloo.
-    with Phase(18, "mesh"):
-        phase_mesh_flops(cfg, tcfg, frame, smi)
-        phase_mesh_nccl(cfg, tcfg, frame)
-        phase_mesh_gloo(cfg)
+        # 18. the mesh: FLOPs and MFU, world size 1 over NCCL, two ranks
+        # on the card over gloo.
+        with Phase(18, "mesh"):
+            phase_mesh_flops(cfg, tcfg, frame, smi)
+            phase_mesh_nccl(cfg, tcfg, frame)
+            phase_mesh_gloo(cfg)
+
+        # 19. the quality tools, from a directory removed when the phase
+        # ends, on phase 15's checkpoint and split.
+        with tempfile.TemporaryDirectory() as tmp:
+            with Phase(19, "quality tools"):
+                quality = phase_quality_tools(Path(tmp), ckpts["custom"],
+                                              str(sparse), cli_custom)
+        cases += quality["cases"]
+        torch.cuda.empty_cache()
 
     # The kernels' line: every kernel's headline case at its training
     # step's shape (K1-K3: B = 32, K = 128 bf16; K4: T2's full form; K5,
@@ -3146,6 +3445,10 @@ def main() -> int:
         if kname in fronts["explain"]["launches_per_tile"]:
             per_path["explain tile"] = fronts["explain"][
                 "launches_per_tile"][kname]
+        for tool in ("eval", "oracle"):
+            if kname in quality[f"launches_per_{tool}_batch"]:
+                per_path[f"{tool} tool batch"] = quality[
+                    f"launches_per_{tool}_batch"][kname]
         path = "T3" if kname.startswith("ms_") else "T2"
         kernels.append(dict(
             name=kname, route="cuda",

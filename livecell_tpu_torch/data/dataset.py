@@ -236,6 +236,12 @@ class PackedDataset:
             yield images, targets, bvalid
 
 
+def instance_slots(observed: int) -> int:
+    """The static instance slots sized to a split's most crowded tile
+    (`observed` instances): a multiple of 32 in [32, 512]."""
+    return min(max(32, -(-observed // 32) * 32), 512)
+
+
 def get_datasets(root_dir: str, model_cfg: Optional[ModelConfig] = None,
                  device=None) -> Dict[str, PackedDataset]:
     """All three splits that load (the reference's get_dataloaders); a

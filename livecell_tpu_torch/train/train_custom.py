@@ -37,7 +37,7 @@ import torch
 from livecell_tpu_torch.config import (
     JAX_ROUTES, Config, ModelConfig, add_dense_flags, add_train_shape_flags,
     apply_dense_flags, apply_train_shape_flags)
-from livecell_tpu_torch.data.dataset import get_datasets
+from livecell_tpu_torch.data.dataset import get_datasets, instance_slots
 from livecell_tpu_torch.data.device_data import (
     DeviceDataset, epoch_generator, epoch_indices, fetch_metrics,
     train_epoch)
@@ -222,7 +222,7 @@ def main(argv=None, config=None, device=None):
     # built with the sized config.
     observed = max((int(ds.instance_counts().max())
                     for ds in datasets.values() if len(ds)), default=0)
-    auto_i = min(max(32, -(-observed // 32) * 32), 512)
+    auto_i = instance_slots(observed)
     if observed and auto_i != mcfg.max_instances:
         print(f"  Instance slots: {mcfg.max_instances} -> {auto_i} "
               f"(split max {observed} instances/tile)")

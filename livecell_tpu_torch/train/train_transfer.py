@@ -112,7 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "when training without --pretrained")
     parser.add_argument("--track_preds", action="store_true",
                         help="per-batch eval forward counting preds>0.5 "
-                             "(host-batch path)")
+                             "(host-batch path; the global batch's on a "
+                             "mesh)")
     parser.add_argument("--device_data", type=str, default="auto",
                         choices=["auto", "on", "off"],
                         help="hold the training split on the card and "
@@ -152,8 +153,6 @@ def main(argv=None, transfer_cfg=None, device=None):
     print = main_print(mesh)
     if mesh is not None:
         dev = mesh.device
-        if args.track_preds:
-            raise ValueError("--track_preds runs on one card")
     cfg = Config()
     tcfg = transfer_cfg or TransferConfig()
     want_frozen = (args.frozen_bn == "on" or
@@ -291,8 +290,12 @@ def main(argv=None, transfer_cfg=None, device=None):
                 for images, targets in batches:
                     rows.append(step(images, targets, generator=gen))
                     if args.track_preds:
+                        # On a mesh each rank holds its rows; the eval
+                        # step takes the global batch and returns every
+                        # rank the whole batch's detections.
                         sync_eval()
-                        det = eval_step(images)
+                        det = eval_step(images if mesh is None
+                                        else mesh.data.gather(images))
                         pred_counts.append(float(
                             (det.valid & (det.scores > 0.5)).sum(1)
                             .float().mean()))

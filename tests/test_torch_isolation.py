@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: no module of livecell_tpu_torch/ and
-not chip_smoke.py, cli_seed_spread.py or train_step_ab.py imports JAX,
-its libraries or the JAX package, and none imports PIL, matplotlib,
-gradio, requests or tqdm when it is imported (the card's machine has
-none of them; the drawing and serving ones are imported inside the
-functions that draw or serve, and the downloader takes urllib)."""
+not chip_smoke.py, cli_seed_spread.py, train_step_ab.py or
+quality_run.py imports JAX, its libraries or the JAX package, and none
+imports PIL, matplotlib, gradio, requests or tqdm when it is imported
+(the card's machine has none of them; the drawing and serving ones are
+imported inside the functions that draw or serve, and the downloader
+takes urllib)."""
 
 import ast
 from pathlib import Path
@@ -17,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex",
 NOT_ON_CARD = ("PIL", "matplotlib", "gradio", "requests", "tqdm")
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "livecell_tpu_torch").rglob("*.py")) + [
-    "chip_smoke.py", "cli_seed_spread.py", "train_step_ab.py"]
+    "chip_smoke.py", "cli_seed_spread.py", "train_step_ab.py",
+    "quality_run.py"]
 
 
 def imported_modules(path: Path):
@@ -47,9 +49,11 @@ def test_scan_covers_the_package():
                 "serve/visualize.py", "serve/explain.py", "serve/app.py",
                 "serve/stitch.py", "parallel/mesh.py", "data/multihost.py",
                 "utils/flops.py", "utils/profiling.py", "data/download.py",
-                "data/dvc.py"):
+                "data/dvc.py", "tools/synth_splits.py", "tools/gt_bound.py",
+                "tools/eval_ckpt.py", "tools/oracle_probe.py",
+                "tools/quality_matrix.py", "tools/dense_sweep.py"):
         assert "livecell_tpu_torch/" + rel in FILES
-    assert len(FILES) >= 39
+    assert len(FILES) >= 46
 
 
 @pytest.mark.parametrize("rel", FILES)

@@ -567,7 +567,64 @@ def test_transfer_mfu_prints_the_step_flops(split, monkeypatch, tmp_path,
     assert out.count("MFU unknown") == 2
 
 
-def test_custom_cli_on_a_two_rank_mesh(split, monkeypatch, tmp_path):
+MESH_CUSTOM = ["--batch_size", "4", "--num_epochs", "1", "--device_data",
+               "off", "--lr", "0"] + FLAGSHIP
+# One stage-1 epoch of two host batches, each followed by --track_preds'
+# eval forward of the batch, from the fake torchvision weights of
+# `biased_pretrained`.
+MESH_TRANSFER = ["--batch_size", "4", "--clip_grad_norm", "10",
+                 "--stage1_epochs", "1", "--stage2_epochs", "0",
+                 "--device_data", "off", "--track_preds"]
+
+
+def biased_pretrained(path: Path) -> Path:
+    """Fake torchvision weights with two classes whose box classifier
+    leans to the cell class by a bias of 0.05, so about half the
+    detections score above 0.5 (the random predictor scores none)."""
+    sd = {k: torch.from_numpy(np.asarray(v)) for k, v in
+          fake_torchvision_maskrcnn_state_dict(num_classes=2).items()}
+    sd["roi_heads.box_predictor.cls_score.bias"] = torch.tensor([0.0, 0.05])
+    torch.save(sd, path)
+    return path
+
+
+@pytest.fixture(scope="module")
+def two_rank_runs(split, tmp_path_factory):
+    """Both trainer CLIs under torchrun's environment with two ranks
+    (gloo on the CPU), in one spawn: the custom CLI on MESH_CUSTOM, then
+    the transfer CLI on MESH_TRANSFER, each from its own directory.
+    Returns (each rank's results, the working root, the transfer
+    argv)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from tests import torch_mesh_worker
+
+    root = tmp_path_factory.mktemp("two_ranks")
+    transfer = MESH_TRANSFER + ["--pretrained", str(biased_pretrained(
+        root / "tv.pth"))]
+    jobs = []
+    for cli, argv in (("custom", MESH_CUSTOM), ("transfer", transfer)):
+        (root / cli).mkdir()
+        jobs.append((cli, ["--data_dir", str(split)] + argv,
+                     str(root / cli)))
+    torch.save({"custom": jax_config_to_dict(TINY),
+                "transfer": dataclasses.asdict(PORT_TTINY)},
+               root / "cfg.pt")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(torch_mesh_worker.cli_rank, nprocs=2,
+                       start_method="spawn",
+                       args=(2, port, jobs, str(root)))
+    ranks = [torch.load(root / f"cli{r}.pt", weights_only=False)
+             for r in range(2)]
+    return ranks, root, transfer
+
+
+def test_custom_cli_on_a_two_rank_mesh(two_rank_runs, split, monkeypatch,
+                                       tmp_path):
     """Under torchrun's environment with two ranks (gloo on the CPU) the
     custom CLI trains on a data-parallel mesh: host batches through
     ShardedLoader (--device_data off), the same global losses on both
@@ -575,34 +632,36 @@ def test_custom_cli_on_a_two_rank_mesh(split, monkeypatch, tmp_path):
     which loads into the no-mesh model. With --lr 0 the weights stay,
     so the epoch's mean loss compares the mesh's forwards with the
     single process's over the same batches: 1e-5 relative."""
-    import socket
-
-    import torch.multiprocessing as mp
-
-    from tests import torch_mesh_worker
-
-    argv = ["--data_dir", str(split), "--batch_size", "4", "--num_epochs",
-            "1", "--device_data", "off", "--lr", "0"] + FLAGSHIP
-    (tmp_path / "mesh").mkdir()
-    torch.save(jax_config_to_dict(TINY), tmp_path / "cfg.pt")
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    mp.start_processes(torch_mesh_worker.cli_rank, nprocs=2,
-                       start_method="spawn",
-                       args=(2, port, argv, str(tmp_path / "mesh"),
-                             str(tmp_path)))
-    ranks = [torch.load(tmp_path / f"cli{r}.pt", weights_only=False)
-             for r in range(2)]
-    assert ranks[0]["train_losses"] == ranks[1]["train_losses"]
-    assert "Epoch 1 Training" in ranks[0]["printed"]
-    assert "Epoch 1 Training" not in ranks[1]["printed"]
-    assert "Mesh: data 2 x model 1" in ranks[0]["printed"]
-    path = tmp_path / "mesh" / "models" / "custom_maskrcnn_1epochs.ckpt"
+    ranks, root, _ = two_rank_runs
+    custom = [r[0] for r in ranks]
+    assert custom[0]["train_losses"] == custom[1]["train_losses"]
+    assert "Epoch 1 Training" in custom[0]["printed"]
+    assert "Epoch 1 Training" not in custom[1]["printed"]
+    assert "Mesh: data 2 x model 1" in custom[0]["printed"]
+    path = root / "custom" / "models" / "custom_maskrcnn_1epochs.ckpt"
     _, cfg, sd = load_model_state(str(path), "cpu")
     create_train_model(cfg, device="cpu").load_state_dict(sd, strict=True)
 
-    (tmp_path / "single").mkdir()
-    single = run_custom(argv[4:], tmp_path / "single", monkeypatch, split)
-    np.testing.assert_allclose(ranks[0]["train_losses"],
+    single = run_custom(MESH_CUSTOM[2:], tmp_path, monkeypatch, split)
+    np.testing.assert_allclose(custom[0]["train_losses"],
                                single["train_losses"], rtol=1e-5)
+
+
+def test_transfer_track_preds_on_a_two_rank_mesh(two_rank_runs, split,
+                                                 monkeypatch, tmp_path,
+                                                 capsys):
+    """--track_preds on the two-rank mesh: after each step the global
+    batch goes through the mesh eval step, and rank 0 prints the mean
+    count of detections above 0.5 per image, the single process's count
+    to the printed two decimals (equal strings). The count is not 0, so
+    the comparison is not one of empty detections (nor of a full
+    detection budget)."""
+    ranks, _, argv = two_rank_runs
+    printed = [r[1]["printed"] for r in ranks]
+    lines = [ln for ln in printed[0].splitlines() if "preds>0.5" in ln]
+    assert len(lines) == 1 and "preds>0.5" not in printed[1]
+    run_transfer(argv[4:], tmp_path, monkeypatch, split)
+    want = [ln for ln in capsys.readouterr().out.splitlines()
+            if "preds>0.5" in ln]
+    assert lines == want
+    assert 0 < float(want[0].split(":")[1]) < PORT_TTINY.max_detections

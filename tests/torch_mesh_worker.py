@@ -102,32 +102,41 @@ def _predict(mesh, task):
 TASKS = {"train": _train, "rows": _rows, "predict": _predict}
 
 
-def cli_rank(rank: int, world: int, port: int, argv, cwd: str,
-             out_dir: str) -> None:
-    """One rank of the custom trainer CLI under torchrun's environment
-    (WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR/PORT), on the CPU, with
-    tests/test_torch_train_cli.py's TINY config; writes the losses it
-    returned and what it printed to out_dir."""
+def cli_rank(rank: int, world: int, port: int, jobs, out_dir: str) -> None:
+    """One rank of the trainer CLIs under torchrun's environment
+    (WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR/PORT), on the CPU: each
+    job (cli, argv, cwd) runs in turn, "custom" with the ModelConfig
+    and "transfer" with the TransferConfig of
+    tests/test_torch_train_cli.py (out_dir/cfg.pt holds both as dicts).
+    Writes each job's returned losses and what it printed to
+    out_dir/cli<rank>.pt."""
     import contextlib
     import io
 
-    from livecell_tpu_torch.config import Config, model_config_from_dict
-    from livecell_tpu_torch.train import train_custom
+    from livecell_tpu_torch.config import (
+        Config, TransferConfig, model_config_from_dict)
+    from livecell_tpu_torch.train import train_custom, train_transfer
 
     os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
                       LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
                       MASTER_PORT=str(port))
     torch.set_num_threads(1)
-    os.chdir(cwd)
-    cfg = model_config_from_dict(torch.load(
-        os.path.join(out_dir, "cfg.pt"), weights_only=False))
-    printed = io.StringIO()
-    with contextlib.redirect_stdout(printed):
-        out = train_custom.main(argv, config=Config(model=cfg),
-                                device="cpu")
-    torch.save({"train_losses": out["train_losses"],
-                "printed": printed.getvalue()},
-               os.path.join(out_dir, f"cli{rank}.pt"))
+    cfgs = torch.load(os.path.join(out_dir, "cfg.pt"), weights_only=False)
+    results = []
+    for cli, argv, cwd in jobs:
+        os.chdir(cwd)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            if cli == "custom":
+                out = train_custom.main(argv, config=Config(
+                    model=model_config_from_dict(cfgs["custom"])),
+                    device="cpu")
+            else:
+                out = train_transfer.main(argv, transfer_cfg=TransferConfig(
+                    **cfgs["transfer"]), device="cpu")
+        results.append({"train_losses": out.get("train_losses"),
+                        "printed": printed.getvalue()})
+    torch.save(results, os.path.join(out_dir, f"cli{rank}.pt"))
 
 
 def run(rank: int, world: int, port: int, model_parallel: int,
