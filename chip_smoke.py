@@ -146,6 +146,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ms of queued device work), launches per frame and tile, and the F1
      values, with the card's name and power limit.
 
+ 18. mesh (phase_mesh_flops, phase_mesh_nccl, phase_mesh_gloo): FLOP
+     counts and MFU of T1-T3 and requests (a), (d), a traced T1 step,
+     world size 1 over NCCL, two gloo ranks on the card;
+ 19. quality tools (phase_quality_tools) on phase 15's checkpoint;
+ 20. measurement tools (phase_measure_tools): livecell_tpu_torch/tools/
+     profile_step, trace_summary, profile_transfer, roofline,
+     bench_roi_blocks (K1-K3 at 16 x 56x76x256, K = 128 and 64, against
+     their plain versions), check_torch_import (a seeded
+     torchvision-layout file refused at the zero-shot gate, then passed
+     with its RPN bias leaned), bench_serve, bench_transfer_nms (K5
+     against its plain version on its inputs at B = 1, K = 512 and 1000
+     at 7x7, K = 100 at 14x14), bench_nms and bench_conv1, each in
+     process on the card, its JSON parsed and its times finite and > 0,
+     the launches of each path the tools drive counted per call; the
+     roofline FLOPs of T2 and T3 equal to phase 18's.
+
 Each phase prints its seconds. Prints the kernels' JSON line, then as
 the last line {"ok": true, "device": {...}}. Writes nothing outside the
 checkout but, under $TMPDIR, a temporary checkpoint, the split of
@@ -200,48 +216,37 @@ class Phase:
 
 
 def time_ms(fn, warmup=3, runs=21, calls=10) -> float:
-    """Time per call by CUDA events: the median over `runs` runs, each of
-    `calls` back-to-back calls (so the host's enqueue overlaps the
-    device's work), divided by `calls`."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    evs = []
-    for _ in range(runs):
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s.record()
-        for _ in range(calls):
-            fn()
-        e.record()
-        evs.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in evs) / calls
+    """Time per call by CUDA events (utils/profiling.per_call_ms): the
+    median over `runs` runs, each of `calls` back-to-back calls (so the
+    host's enqueue overlaps the device's work), divided by `calls`."""
+    from livecell_tpu_torch.utils.profiling import per_call_ms
+    return per_call_ms(fn, "cuda", calls=calls, warmup=warmup, runs=runs)
 
 
 def kernel_ms(fn, kernels: tuple, calls=10):
     """Device time per call of `fn` spent in the CUDA kernels whose names
     contain one of `kernels` (all the kernels one wrapper call launches,
-    e.g. a pre-pass and the main kernel, each once a call), from
-    torch.profiler: their summed time over `calls` calls, divided by
-    `calls` (excludes the host's launch gaps). A profiler session on the
-    H100 now and then records only some of the launches, or none, so up
-    to five sessions are tried for one that recorded every launch; if
-    none did, the last session's mean time per recorded launch of each
-    kernel is summed instead, and the shortfall logged; if it recorded
-    none of them, None (not measured) is returned and logged: a kernel's
-    launch is shown by its counter and its output, not by the
-    profiler."""
+    e.g. a pre-pass and the main kernel, each once a call), from a
+    utils/profiling.trace session (its warm-up step keeps the session
+    from losing its first launches): their summed time over `calls`
+    calls, divided by `calls` (excludes the host's launch gaps). Up to
+    five sessions are tried for one that recorded every launch; if none
+    did, the last session's mean time per recorded launch of each kernel
+    is summed instead, and the shortfall logged; if it recorded none of
+    them, None (not measured) is returned and logged: a kernel's launch
+    is shown by its counter and its output, not by the profiler."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from livecell_tpu_torch.utils.profiling import trace
 
     fn()
     torch.cuda.synchronize()
     counts = {}
     for _ in range(5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp) as prof:
+                for _ in range(calls):
+                    fn()
         rows = [ev for ev in prof.key_averages()
                 if ev.device_type == DeviceType.CUDA
                 and any(k in ev.key for k in kernels)]
@@ -721,11 +726,6 @@ TRAIN_B, POOL_TILES = 32, 128
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 
 
-def sync(dev) -> None:
-    if torch.device(dev).type == "cuda":
-        torch.cuda.synchronize()
-
-
 def train_counters() -> dict:
     """The launch counters of the four kernels of a training step."""
     from livecell_tpu_torch.ops import cuda_match as cm
@@ -760,6 +760,7 @@ def phase_train(label: str, cfg, pool, batch: int, dev,
     from livecell_tpu_torch.models.mask_rcnn import create_train_model
     from livecell_tpu_torch.parallel.train_step import (
         build_optimizer, make_step_fn)
+    from livecell_tpu_torch.utils.profiling import sync
 
     model = create_train_model(cfg, torch.Generator().manual_seed(SEED),
                                device=dev)
@@ -872,6 +873,7 @@ def phase_checkpoint(model, opt, dev, tile: np.ndarray) -> dict:
     from livecell_tpu_torch.ops import cuda_roi_align as cra
     from livecell_tpu_torch.serve.app import InferenceEngine, load_model
     from livecell_tpu_torch.train import checkpoint
+    from livecell_tpu_torch.utils.profiling import sync
 
     with tempfile.TemporaryDirectory() as tmp:
         path = checkpoint.save(tmp + "/ckpt", model, opt, epoch=1)
@@ -984,31 +986,17 @@ def serve(engine, image, counters, expect_fwd, label):
 
 
 def profile_call(fn) -> dict:
-    """Device time by kernel over one call of `fn` (torch.profiler): the
-    kernels' summed time, the call's wall time and the share of it the
-    device sat idle, and the kernels that took the most."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    # A user annotation's device range (the optimizer's step) spans
-    # kernels already counted: left out.
-    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
-                   for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA
-                   and not getattr(ev, "is_user_annotation", False)
-                   and ev.self_device_time_total > 0), reverse=True)
-    busy = sum(r[0] for r in rows) / 1e3
-    return dict(wall_ms=wall, device_busy_ms=busy,
-                idle_share=max(0.0, 1.0 - busy / wall),
-                kernel_launches=sum(r[2] for r in rows),
-                top=[dict(name=k[:70], device_ms=us / 1e3, calls=n)
-                     for us, k, n in rows[:10]])
+    """One call of `fn` traced (tools/trace_summary.summarize_call): its
+    wall time, the device busy time (the union of its device events) and
+    the share of the wall time the device sat idle, the kernel launches,
+    and the kernels that took the most."""
+    from livecell_tpu_torch.tools import trace_summary
+    s = trace_summary.summarize_call(fn)
+    return dict(wall_ms=s["wall_ms"], device_busy_ms=s["busy_ms"],
+                idle_share=max(0.0, 1.0 - s["busy_ms"] / s["wall_ms"]),
+                kernel_launches=s["launches"],
+                top=[dict(name=k[:70], device_ms=us / 1e3)
+                     for k, us, _ in s["top"][:10]])
 
 
 def profile_request(engine, image) -> dict:
@@ -3233,6 +3221,468 @@ def phase_quality_tools(root: Path, ckpt: str, sparse: str, cli: dict
     return res
 
 
+# ---------------------------------------------------------------------------
+# The measurement tools (phase 20).
+# ---------------------------------------------------------------------------
+# Fewer timed steps than the tools' defaults where those would cost
+# minutes; every tool at its JAX defaults' widths otherwise.
+MEASURE_STEPS = {"profile_step": 10, "profile_transfer": 6, "roofline": 10,
+                 "bench_transfer_nms": 10}
+BUSY_AGREEMENT = 0.10        # trace_summary's busy time vs profile_call's
+
+
+def fake_torchvision_state_dict(seed: int = SEED, num_classes: int = 91
+                                ) -> dict:
+    """A torchvision maskrcnn_resnet50_fpn state dict with every key at
+    its shape, drawn from a seed with numpy (tests/util_torchvision_fake
+    .py's layout and draws, copied: the port does not import the
+    tests)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def t(name, *shape):
+        sd[name] = rng.normal(0, 0.02, size=shape).astype(np.float32)
+
+    def bn(prefix, ch):
+        t(f"{prefix}.weight", ch)
+        t(f"{prefix}.bias", ch)
+        t(f"{prefix}.running_mean", ch)
+        sd[f"{prefix}.running_var"] = np.abs(
+            rng.normal(1, 0.1, size=ch)).astype(np.float32)
+        sd[f"{prefix}.num_batches_tracked"] = np.asarray(1, np.int64)
+
+    body = "backbone.body"
+    t(f"{body}.conv1.weight", 64, 3, 7, 7)
+    bn(f"{body}.bn1", 64)
+    in_ch = 64
+    for stage, (depth, w) in enumerate(zip((3, 4, 6, 3),
+                                           (64, 128, 256, 512)), 1):
+        for j in range(depth):
+            p = f"{body}.layer{stage}.{j}"
+            t(f"{p}.conv1.weight", w, in_ch, 1, 1)
+            bn(f"{p}.bn1", w)
+            t(f"{p}.conv2.weight", w, w, 3, 3)
+            bn(f"{p}.bn2", w)
+            t(f"{p}.conv3.weight", w * 4, w, 1, 1)
+            bn(f"{p}.bn3", w * 4)
+            if j == 0:
+                t(f"{p}.downsample.0.weight", w * 4, in_ch, 1, 1)
+                bn(f"{p}.downsample.1", w * 4)
+            in_ch = w * 4
+    for i, c in enumerate((256, 512, 1024, 2048)):
+        t(f"backbone.fpn.inner_blocks.{i}.0.weight", 256, c, 1, 1)
+        t(f"backbone.fpn.inner_blocks.{i}.0.bias", 256)
+        t(f"backbone.fpn.layer_blocks.{i}.0.weight", 256, 256, 3, 3)
+        t(f"backbone.fpn.layer_blocks.{i}.0.bias", 256)
+    t("rpn.head.conv.0.0.weight", 256, 256, 3, 3)
+    t("rpn.head.conv.0.0.bias", 256)
+    t("rpn.head.cls_logits.weight", 3, 256, 1, 1)
+    t("rpn.head.cls_logits.bias", 3)
+    t("rpn.head.bbox_pred.weight", 12, 256, 1, 1)
+    t("rpn.head.bbox_pred.bias", 12)
+    t("roi_heads.box_head.fc6.weight", 1024, 256 * 7 * 7)
+    t("roi_heads.box_head.fc6.bias", 1024)
+    t("roi_heads.box_head.fc7.weight", 1024, 1024)
+    t("roi_heads.box_head.fc7.bias", 1024)
+    t("roi_heads.box_predictor.cls_score.weight", num_classes, 1024)
+    t("roi_heads.box_predictor.cls_score.bias", num_classes)
+    t("roi_heads.box_predictor.bbox_pred.weight", num_classes * 4, 1024)
+    t("roi_heads.box_predictor.bbox_pred.bias", num_classes * 4)
+    for k in range(1, 5):
+        t(f"roi_heads.mask_head.mask_fcn{k}.weight", 256, 256, 3, 3)
+        t(f"roi_heads.mask_head.mask_fcn{k}.bias", 256)
+    t("roi_heads.mask_predictor.conv5_mask.weight", 256, 256, 2, 2)
+    t("roi_heads.mask_predictor.conv5_mask.bias", 256)
+    t("roi_heads.mask_predictor.mask_fcn_logits.weight",
+      num_classes, 256, 1, 1)
+    t("roi_heads.mask_predictor.mask_fcn_logits.bias", num_classes)
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}
+
+
+def run_tool(mod, argv: list):
+    """A tool's main on the card, its standard output passed through and
+    parsed: (the returned value, the printed JSON lines)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = mod.main(argv)
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    sys.stdout.flush()
+    return ret, [json.loads(ln) for ln in text.splitlines()
+                 if ln.startswith("{")]
+
+
+def positive(name: str, rec: dict, keys) -> None:
+    bad = {k: rec.get(k) for k in keys
+           if not (isinstance(rec.get(k), (int, float))
+                   and math.isfinite(rec[k]) and rec[k] > 0)}
+    if bad:
+        raise AssertionError(f"{name}: times not finite and > 0: {bad}")
+
+
+def zeroed(counters: dict) -> dict:
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def tallied(fn, counters: dict, tally: dict, key):
+    """`fn`, adding to tally[key(*args)] one call and the launches of
+    `counters` that call makes."""
+    def wrapped(*args, **kw):
+        before = {k: c.launches for k, c in counters.items()}
+        out = fn(*args, **kw)
+        row = tally.setdefault(key(*args, **kw),
+                               dict.fromkeys(("calls", *counters), 0))
+        row["calls"] += 1
+        for k, c in counters.items():
+            row[k] += c.launches - before[k]
+        return out
+    return wrapped
+
+
+def per_call(tally: dict, want: dict) -> dict:
+    """The launches per call of each path in `tally`; raises unless they
+    are `want[path]` (the path's kernels, each launched at least once a
+    call)."""
+    got = {path: {k: v / row["calls"] for k, v in row.items()
+                  if k != "calls"} for path, row in tally.items()}
+    if got != want:
+        raise AssertionError(f"launches per call {got}, want {want}")
+    return got
+
+
+def phase_measure_tools(root: Path, flops18: dict, smi: str) -> dict:
+    """20. The measurement tools (livecell_tpu_torch/tools/) in process on
+    the card at their JAX defaults' widths, each one's printed JSON
+    parsed and its times finite and > 0: profile_step (T2's shape) and
+    trace_summary on its trace (K1-K4 named, the busy time within
+    BUSY_AGREEMENT of profile_call's for the same step, 0 < MFU <= 1,
+    K1-K4 once per step); profile_transfer with and without --scan
+    (K4/K5/K6 1/2/2 per step); roofline of T2 and T3 with --measure, the
+    FLOPs equal to phase 18's count to 4 places; bench_roi_blocks (its
+    checks, every kernel's geometry, K1/K2 once per timed forward and
+    K1-K3 once per forward-backward, then K1-K3 held against their plain
+    versions on its inputs for the kernels' record); check_torch_import
+    on a torchvision-layout file drawn from a seed (refused at the
+    zero-shot gate with JAX's message) and on the same file with the RPN
+    bias leaned by +3 (tier 2); bench_serve (K1/K2 once per model call
+    of its tile, frame and pipelined paths); bench_transfer_nms (K5
+    twice per model call at each top-k, and held against its plain
+    version on the first call's inputs: K = top-k at 7x7, K = 100 at
+    14x14, B = 1); bench_nms (its profiled launches equal to its CUDA
+    graph's kernel nodes) and bench_conv1 (its three rel_err <= 1e-4).
+    Every launch count starts from 0 just before its tool runs."""
+    from livecell_tpu_torch.config import ModelConfig
+    from livecell_tpu_torch.models.mask_rcnn import (
+        create_model, create_train_model)
+    from livecell_tpu_torch.ops import cuda_match as cm
+    from livecell_tpu_torch.ops import cuda_ms_roi_align as cms
+    from livecell_tpu_torch.ops import cuda_roi_align as cra
+    from livecell_tpu_torch.parallel.train_step import build_optimizer
+    from livecell_tpu_torch.tools import (
+        bench_conv1, bench_nms, bench_roi_blocks, bench_serve,
+        bench_transfer_nms, check_torch_import, profile_step,
+        profile_transfer, roofline, trace_summary)
+    from livecell_tpu_torch.tools.steps import (
+        CONSTANT_LR_EPOCH, stepper, to_device)
+    from livecell_tpu_torch.utils.profiling import per_call_ms
+
+    res, cases, secs = {}, [], {}
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        secs[name] = now - t_part[0]
+        t_part[0] = now
+        torch.cuda.empty_cache()
+
+    # (a) profile_step at T2's shape, then trace_summary on its trace.
+    k14 = train_counters()
+    steps = MEASURE_STEPS["profile_step"]
+    trace_dir = root / "xprof"
+    zeroed(k14)
+    rec, lines = run_tool(profile_step, [
+        "--bs", str(TRAIN_B), "--steps", str(steps), "--fixed",
+        "--mask_samples", "64", "--trace", str(trace_dir)])
+    ran = 1 + steps + profile_step.TRACE_STEPS + 1   # warm, timed, trace,
+    launches = {k: fn.launches for k, fn in k14.items()}   # the FLOP count
+    positive("profile_step", rec, ("step_ms", "img_per_sec"))
+    if not (lines[-1] == rec and rec["mfu"] is not None
+            and 0 < rec["mfu"] <= 1
+            and launches == {k: ran for k in k14}):
+        raise AssertionError(f"profile_step: {rec}, launches {launches} "
+                             f"for {ran} steps")
+    summary = trace_summary.summarize(str(trace_dir),
+                                      profile_step.TRACE_STEPS, top=10 ** 6)
+    trace_summary.print_summary(dict(summary, by_kind=summary["by_kind"][:12],
+                                     by_source=summary["by_source"][:12],
+                                     by_op=summary["by_op"][:12],
+                                     top=summary["top"][:12]))
+    names = ("roi_weights_kernel", "roi_align_fwd_kernel",
+             "roi_spans_kernel", "roi_align_bwd_kernel", "match_kernel")
+    ranks = {n: next((i for i, r in enumerate(summary["top"])
+                      if n in r[0]), None) for n in names}
+    # The same step, one call traced again by profile_call (the same busy
+    # rule: the union of the device events): up to 3 readings, the first
+    # within BUSY_AGREEMENT kept.
+    cfg = ModelConfig(**TRAIN_CFGS["T2"])
+    model = create_train_model(cfg, torch.Generator().manual_seed(0),
+                               device="cuda")
+    opt = build_optimizer(model, 1e-3, 1e-4, CONSTANT_LR_EPOCH)
+    run = stepper(model, opt, *to_device(
+        *profile_step.draw_inputs(cfg, TRAIN_B), "cuda"))
+    run()
+    per_step = summary["busy_ms"] / profile_step.TRACE_STEPS
+    for attempt in range(3):
+        prof = profile_call(run)
+        gap = abs(per_step - prof["device_busy_ms"]) / prof["device_busy_ms"]
+        if gap <= BUSY_AGREEMENT:
+            break
+    res["profile_step"] = dict(
+        record=rec, launches_per_step={k: v / ran for k, v in
+                                       launches.items()},
+        trace_busy_ms_per_step=per_step,
+        trace_idle_share=summary["idle_share"],
+        trace_launches_per_step=summary["launches"]
+        / profile_step.TRACE_STEPS,
+        profile_call_busy_ms=prof["device_busy_ms"], busy_gap=gap,
+        busy_readings=attempt + 1, kernel_ranks=ranks, top=summary["top"][:10])
+    log(f"[measure] {smi} | profile_step", json.dumps(res["profile_step"]))
+    if not (all(r is not None for r in ranks.values())
+            and gap <= BUSY_AGREEMENT):
+        raise AssertionError(f"trace_summary of profile_step: ranks {ranks}, "
+                             f"busy {per_step} vs {prof['device_busy_ms']}")
+    del model, opt, run
+    part("a_profile_step")
+
+    # (b) profile_transfer with and without --scan.
+    k456 = {"match_anchors": cm.match_anchors,
+            "ms_roi_align_fwd": cms.ms_roi_align_fwd,
+            "ms_roi_align_bwd": cms.ms_roi_align_bwd}
+    steps = MEASURE_STEPS["profile_transfer"]
+    res["profile_transfer"] = {}
+    for scan in (False, True):
+        zeroed(k456)
+        argv = ["--steps", str(steps), "--trace",
+                "" if scan else str(root / "xprof_transfer")]
+        rec, lines = run_tool(profile_transfer,
+                              argv + (["--scan"] if scan else []))
+        ran = 1 + steps + 1 + (0 if scan else profile_transfer.TRACE_STEPS)
+        launches = {k: fn.launches for k, fn in k456.items()}
+        positive("profile_transfer", rec, ("step_ms", "img_per_sec"))
+        want = {"match_anchors": ran, "ms_roi_align_fwd": 2 * ran,
+                "ms_roi_align_bwd": 2 * ran}
+        label = "scan" if scan else "per_step"
+        res["profile_transfer"][label] = dict(
+            record=rec, launches_per_step={k: v / ran for k, v in
+                                           launches.items()})
+        log(f"[measure] {smi} | profile_transfer {label}",
+            json.dumps(res["profile_transfer"][label]))
+        if not (lines[-1] == rec and launches == want
+                and 0 < rec.get("mfu", 0) <= 1):
+            raise AssertionError(f"profile_transfer {label}: {rec}, "
+                                 f"launches {launches} (want {want})")
+    if not list((root / "xprof_transfer").glob("trace_*.json")):
+        raise AssertionError("profile_transfer wrote no trace")
+    part("b_profile_transfer")
+
+    # (c) roofline of T2 and T3, measured.
+    res["roofline"] = {}
+    for label, argv in (("T2", ["--batch_size", str(TRAIN_B)]),
+                        ("T3", ["--transfer", "--batch_size",
+                                str(T_BATCH)])):
+        rec, lines = run_tool(roofline, argv + [
+            "--measure", "--steps", str(MEASURE_STEPS["roofline"])])
+        positive("roofline", rec, (
+            "t_tensor_ms", "t_hbm_ms", "roofline_floor_ms",
+            "measured_ms_per_dispatch", "img_per_sec_per_dispatch",
+            "floor_fraction", "hbm_gbytes"))
+        want = round(flops18[label]["tflop"], 4)
+        res["roofline"][label] = dict(record=rec, phase18_tflop=want)
+        log(f"[measure] {smi} | roofline {label}: floor_fraction "
+            f"{rec['floor_fraction']}", json.dumps(res["roofline"][label]))
+        if not (lines[-1] == rec and rec["analytic_tensor_tflops"] == want):
+            raise AssertionError(f"roofline {label}: {rec}, phase 18 counted "
+                                 f"{want} TFLOP")
+    part("c_roofline")
+
+    # (d) bench_roi_blocks, its timed calls' launches counted, and K1-K3
+    # on its inputs for the record.
+    k123 = {k: fn for k, fn in train_counters().items()
+            if k != "match_anchors"}
+    tally_roi, timed = {}, []
+
+    def counted_timer(fn, dev, **kw):
+        label = (f"bench_roi_blocks K="
+                 f"{bench_roi_blocks.KS[len(timed) // 2]} {fn.__name__}")
+        timed.append(label)
+        return per_call_ms(tallied(fn, k123, tally_roi, lambda: label), dev,
+                           **kw)
+
+    zeroed(k123)
+    with patched(bench_roi_blocks, {"per_call_ms": counted_timer}):
+        rows, lines = run_tool(bench_roi_blocks, [])
+    for r in rows:
+        positive("bench_roi_blocks", r, ("fwd_ms", "fwdbwd_ms"))
+    if (lines != rows or [r["k"] for r in rows] != list(bench_roi_blocks.KS)
+            or not all(g is not None for r in rows
+                       for g in r["geometry"].values())):
+        raise AssertionError(f"bench_roi_blocks: {rows}")
+    run_launches = {"bench_roi_blocks": {
+        k: fn.launches for k, fn in k123.items()}}
+    per_path = per_call(tally_roi, {
+        f"bench_roi_blocks K={k} {name}": {
+            "roi_weights": 1, "roi_align_fwd": 1,
+            "roi_align_bwd": int(name == "fwdbwd")}
+        for k in bench_roi_blocks.KS for name in ("fwd", "fwdbwd")})
+    res["bench_roi_blocks"] = rows
+    data = bench_roi_blocks.inputs("cuda")
+    feat = data["feat"]
+    gen = torch.Generator().manual_seed(SEED + 20)
+    for k in bench_roi_blocks.KS:
+        label = f"roi_blocks K={k}"
+        cases += k12_cases(cra, feat, data[k], label=label)
+        wy, wx = cra.roi_weights(data[k], feat.shape[1:3], OUT, RATIO, SCALE,
+                                 feat.dtype)
+        g = torch.randn((feat.shape[0], k, OUT, OUT, feat.shape[3]),
+                        generator=gen).to("cuda", feat.dtype)
+        cases.append(k3_check(cra, g, wy, wx, tuple(feat.shape[1:3]), label))
+    del data, feat
+    part("d_bench_roi_blocks")
+
+    # (e) check_torch_import: refused at the zero-shot gate, then passed
+    # with the RPN objectness bias leaned by +3.
+    sd = fake_torchvision_state_dict()
+    torch.save(sd, root / "fake.pth")
+    sd["rpn.head.cls_logits.bias"] = sd["rpn.head.cls_logits.bias"] + 3.0
+    torch.save(sd, root / "leaned.pth")
+    del sd
+    try:
+        run_tool(check_torch_import, ["--weights", str(root / "fake.pth")])
+        refusal = None
+    except AssertionError as e:
+        refusal = str(e)
+    gate = ("zero-shot RPN peak objectness ", " <= 0.7 — weights do not "
+            "behave like pretrained COCO weights")
+    if not (refusal and refusal.startswith(gate[0])
+            and refusal.endswith(gate[1])):
+        raise AssertionError(f"check_torch_import on random weights: "
+                             f"{refusal!r}, not the zero-shot refusal")
+    rec, _ = run_tool(check_torch_import,
+                      ["--weights", str(root / "leaned.pth")])
+    try:
+        import torchvision  # noqa: F401
+        tier = 1
+    except ImportError:
+        tier = 2
+    res["check_torch_import"] = dict(refused=refusal, leaned=rec)
+    log("[measure] check_torch_import", json.dumps(
+        res["check_torch_import"]))
+    if rec["tier"] != tier or not rec["peak_objectness"] > 0.7:
+        raise AssertionError(f"check_torch_import, leaned bias: {rec}")
+    part("e_check_torch_import")
+
+    # (f) the serving and study benchmarks. bench_serve's and
+    # bench_transfer_nms' model calls have their launches counted, and K5
+    # is held against its plain version on the first transfer call's
+    # inputs at each top-k.
+    k12 = {"roi_weights": cra.roi_weights,
+           "roi_align_fwd": cra.roi_align_fwd}
+    tally_serve, scope = {}, ["frame"]
+
+    def counted_model(*args, **kw):
+        model = create_model(*args, **kw)
+        model.inference_forward = tallied(
+            model.inference_forward, k12, tally_serve,
+            lambda images: "bench_serve " + (
+                "tile" if images.shape[0] == 1 else scope[0]))
+        return model
+
+    def pipelined(*args, **kw):
+        scope[0] = "pipelined frame"
+        return bench_pipelined_serve(*args, **kw)
+
+    bench_pipelined_serve = bench_serve.bench_pipelined_serve
+    zeroed(k12)
+    with patched(bench_serve, {"create_model": counted_model,
+                               "bench_pipelined_serve": pipelined}):
+        rows, lines = run_tool(bench_serve, [])
+    for r in rows:
+        positive("bench_serve", r, ("value",) + (
+            ("device_ms",) if "device_ms" in r else ()))
+    if lines != rows or len(rows) != 4:
+        raise AssertionError(f"bench_serve: {rows}")
+    run_launches["bench_serve"] = {k: fn.launches for k, fn in k12.items()}
+    per_fwd = 2 if ModelConfig().decode_proposals else 1
+    per_path.update(per_call(tally_serve, {
+        f"bench_serve {path}": dict.fromkeys(k12, per_fwd)
+        for path in ("tile", "frame", "pipelined frame")}))
+    res["bench_serve"] = rows
+    part("f_bench_serve")
+
+    k5 = {"ms_roi_align_fwd": cms.ms_roi_align_fwd}
+    rec5 = Recorder(cms.ms_roi_align_fwd, 2)
+    tally_nms = {}
+
+    def counted_transfer(cfg, *args, **kw):
+        model = create_transfer_model(cfg, *args, **kw)
+        label = f"bench_transfer_nms topk {cfg.rpn_post_nms}"
+        model.inference_forward = tallied(
+            scoped(model.inference_forward, [rec5], label), k5, tally_nms,
+            lambda images: label)
+        return model
+
+    create_transfer_model = bench_transfer_nms.create_transfer_model
+    zeroed(k5)
+    with patched(bench_transfer_nms,
+                 {"create_transfer_model": counted_transfer}), \
+            patched(cms, {"ms_roi_align_fwd": rec5}):
+        rec, lines = run_tool(bench_transfer_nms, [
+            "--steps", str(MEASURE_STEPS["bench_transfer_nms"])])
+    positive("bench_transfer_nms", rec, ("topk_512_ms", "topk_1000_ms"))
+    if lines != [rec]:
+        raise AssertionError(f"bench_transfer_nms: {rec}")
+    run_launches["bench_transfer_nms"] = {k: fn.launches for k, fn in k5.items()}
+    per_path.update(per_call(tally_nms, {
+        f"bench_transfer_nms topk {k}": {"ms_roi_align_fwd": 2}
+        for k in (512, 1000)}))
+    # The box head's proposals (K = top-k, 7x7), then the mask head's
+    # detections (K = 100, 14x14), at B = 1.
+    for label, calls in rec5.calls.items():
+        for feats, boxes, _, out_size, _ in calls:
+            cases += ms_roi_cases(cms, list(feats), boxes, out_size, label,
+                                  backward=False)
+    del rec5
+    res["bench_transfer_nms"] = rec
+    part("g_bench_transfer_nms")
+    rows, lines = run_tool(bench_nms, [])
+    for r in rows:
+        positive("bench_nms", r, ("value", "launches", "graph_launches"))
+    if lines != rows or len(rows) != 3 or not all(
+            r["launches"] == r["graph_launches"] for r in rows):
+        raise AssertionError(f"bench_nms: {rows}")
+    res["bench_nms"] = rows
+    part("h_bench_nms")
+    rows, lines = run_tool(bench_conv1, [])
+    checks = [r for r in rows if "check" in r]
+    for r in rows[len(checks):]:
+        positive("bench_conv1", r, ("fwd_ms", "fwd_wgrad_ms"))
+    if lines != rows or len(checks) != 3 or not all(
+            r["rel_err"] <= 1e-4 for r in checks):
+        raise AssertionError(f"bench_conv1: {rows}")
+    res["bench_conv1"] = rows
+    part("i_bench_conv1")
+
+    res.update(parts_s=secs, cases=cases, launches_per_call=per_path,
+               launches_per_run=run_launches)
+    log(f"[measure] launches per call {json.dumps(per_path)}; per run "
+        f"{json.dumps(run_launches)}")
+    log(f"[measure] parts (s) {json.dumps(secs)}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3384,7 +3834,7 @@ def main() -> int:
         # 18. the mesh: FLOPs and MFU, world size 1 over NCCL, two ranks
         # on the card over gloo.
         with Phase(18, "mesh"):
-            phase_mesh_flops(cfg, tcfg, frame, smi)
+            flops18 = phase_mesh_flops(cfg, tcfg, frame, smi)
             phase_mesh_nccl(cfg, tcfg, frame)
             phase_mesh_gloo(cfg)
 
@@ -3396,6 +3846,14 @@ def main() -> int:
                                               str(sparse), cli_custom)
         cases += quality["cases"]
         torch.cuda.empty_cache()
+
+    # 20. the measurement tools, from a directory removed when the phase
+    # ends.
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase(20, "measure tools"):
+            measure = phase_measure_tools(Path(tmp), flops18, smi)
+    cases += measure["cases"]
+    torch.cuda.empty_cache()
 
     # The kernels' line: every kernel's headline case at its training
     # step's shape (K1-K3: B = 32, K = 128 bf16; K4: T2's full form; K5,
@@ -3449,6 +3907,14 @@ def main() -> int:
             if kname in quality[f"launches_per_{tool}_batch"]:
                 per_path[f"{tool} tool batch"] = quality[
                     f"launches_per_{tool}_batch"][kname]
+        for tool, r in (("profile_step", measure["profile_step"]),
+                        ("profile_transfer",
+                         measure["profile_transfer"]["scan"])):
+            if kname in r["launches_per_step"]:
+                per_path[f"{tool} step"] = r["launches_per_step"][kname]
+        per_path.update({path: r[kname] for path, r in
+                         measure["launches_per_call"].items()
+                         if r.get(kname)})
         path = "T3" if kname.startswith("ms_") else "T2"
         kernels.append(dict(
             name=kname, route="cuda",

@@ -1,14 +1,15 @@
-"""PNG encoder for grayscale tiles and a PNG decoder (counterpart of
-livecell_tpu/data/png.py, which has the encoder only).
+"""PNG encoder for grayscale tiles and RGB panels and a PNG decoder
+(counterpart of livecell_tpu/data/png.py, which has the grey encoder
+only).
 
 The encoder writes filter-type-0 scanlines compressed with zlib at a
 caller-chosen level: an 8-bit grayscale PNG, byte for byte the JAX
-package's. The decoder reads the tiles back without PIL (the data path
-runs where PIL is not installed): 8-bit grey, RGB, palette, grey+alpha
-and RGBA images, non-interlaced, with every scanline filter (0-4), into
-uint8 [H, W, 3] as PIL's `Image.open(p).convert("RGB")` gives them:
-grey is widened to three equal channels, a palette is looked up, alpha
-is dropped. Interlaced files and bit depths other than 8 raise.
+package's, or an 8-bit RGB one. The decoder reads the tiles back
+without PIL (the data path runs where PIL is not installed): 8-bit
+grey, RGB, palette, grey+alpha and RGBA images, non-interlaced, with
+every scanline filter (0-4), into uint8 [H, W, 3] as PIL's
+`Image.open(p).convert("RGB")` gives them: grey is widened to three
+equal channels, a palette is looked up, alpha is dropped. Interlaced files and bit depths other than 8 raise.
 """
 
 from __future__ import annotations
@@ -28,22 +29,39 @@ def _chunk(typ: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + c + struct.pack(">I", zlib.crc32(c))
 
 
-def encode_gray_png(arr: np.ndarray, compress_level: int = 1) -> bytes:
-    """Encode a [H, W] uint8 array as an 8-bit grayscale PNG."""
-    if arr.ndim != 2 or arr.dtype != np.uint8:
-        raise ValueError(f"need [H, W] uint8, got {arr.shape} {arr.dtype}")
-    h, w = arr.shape
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)
-    rows = np.zeros((h, w + 1), np.uint8)   # leading 0 = filter None
-    rows[:, 1:] = arr
+def _encode(arr: np.ndarray, color_type: int, compress_level: int) -> bytes:
+    h, w = arr.shape[:2]
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    rows = np.zeros((h, arr[0].size + 1), np.uint8)   # leading 0 = None
+    rows[:, 1:] = arr.reshape(h, -1)
     idat = zlib.compress(rows.tobytes(), compress_level)
     return (_SIG + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", idat)
             + _chunk(b"IEND", b""))
 
 
+def encode_gray_png(arr: np.ndarray, compress_level: int = 1) -> bytes:
+    """Encode a [H, W] uint8 array as an 8-bit grayscale PNG."""
+    if arr.ndim != 2 or arr.dtype != np.uint8:
+        raise ValueError(f"need [H, W] uint8, got {arr.shape} {arr.dtype}")
+    return _encode(arr, 0, compress_level)
+
+
+def encode_rgb_png(arr: np.ndarray, compress_level: int = 1) -> bytes:
+    """Encode a [H, W, 3] uint8 array as an 8-bit RGB PNG."""
+    if arr.ndim != 3 or arr.shape[2] != 3 or arr.dtype != np.uint8:
+        raise ValueError(f"need [H, W, 3] uint8, got {arr.shape} "
+                         f"{arr.dtype}")
+    return _encode(arr, 2, compress_level)
+
+
 def write_gray_png(path, arr: np.ndarray, compress_level: int = 1) -> None:
     with open(path, "wb") as f:
         f.write(encode_gray_png(arr, compress_level))
+
+
+def write_rgb_png(path, arr: np.ndarray, compress_level: int = 1) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_rgb_png(arr, compress_level))
 
 
 def _chunks(data: bytes):

@@ -61,7 +61,9 @@ class ClippedSGD(torch.optim.SGD):
 
     def __init__(self, params, clip_norm: float, **kw):
         super().__init__(params, **kw)
-        self.clip_norm = clip_norm
+        # In `defaults`, which an Optimizer keeps when it is copied or
+        # pickled (its __getstate__); an attribute would be lost.
+        self.defaults["clip_norm"] = clip_norm
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -69,9 +71,9 @@ class ClippedSGD(torch.optim.SGD):
                  if p.grad is not None]
         if grads:
             norm = torch.stack([(x * x).sum() for x in grads]).sum().sqrt()
+            clip = self.defaults["clip_norm"]
             for x in grads:
-                x.copy_(torch.where(norm < self.clip_norm, x,
-                                    x / norm * self.clip_norm))
+                x.copy_(torch.where(norm < clip, x, x / norm * clip))
         return super().step(closure)
 
 

@@ -26,6 +26,18 @@ the kernels and the plain versions on the card count the same.
 Unlike the JAX package's count, which traces, this one executes the
 call: count a step on a copy of the model and optimizer where the real
 state must not move.
+
+`count_bytes(fn, *args)` is built the same way and counts the bytes the
+call moves: the counterpart of XLA's post-fusion "bytes accessed". In
+eager PyTorch each dispatched aten op is one kernel (or none), so each
+op's inputs and outputs are the program's memory traffic, short of what
+the caches keep: an op is charged the bytes of the tensors it reads plus
+those it writes. View ops and allocations move nothing and are charged
+nothing; a tensor an op overwrites without reading (copy_, fill_,
+zero_, an out= argument) is charged as written only. Each kernel wrapper
+and its plain version are charged their inputs read once and their
+outputs written once (`charged`), so this count, like the FLOP count,
+does not depend on the route.
 """
 
 from __future__ import annotations
@@ -86,10 +98,11 @@ _RULES = {aten.mm: _mm, aten.addmm: _addmm, aten.bmm: _bmm,
           aten.convolution_backward: _conv_backward}
 
 
-class FlopCounter(TorchDispatchMode):
-    """Sums the charges of the aten ops run under it (`total`, and
-    `by_op`, by op or kernel name). Kernel wrappers add theirs through
-    `charged`."""
+class _Counter(TorchDispatchMode):
+    """Sums charges (`total`, and `by_op`, by op or kernel name) of the
+    aten ops run under it and of the kernel wrappers (`charged`). While
+    a charged call runs (`suspended`), the aten ops it runs add
+    nothing."""
 
     def __init__(self):
         super().__init__()
@@ -97,14 +110,25 @@ class FlopCounter(TorchDispatchMode):
         self.by_op: Dict[str, float] = defaultdict(float)
         self.suspended = 0
 
-    def add(self, name: str, flops: float) -> None:
-        self.total += flops
-        self.by_op[name] += flops
+    def add(self, name: str, amount: float) -> None:
+        self.total += amount
+        self.by_op[name] += amount
+
+    def op_charge(self, func, args, kwargs, out) -> Optional[float]:
+        """The charge of one aten op, or None for an op charged
+        nothing."""
+        raise NotImplementedError
+
+    def call_charge(self, rule, args, kwargs, out) -> float:
+        """The charge of one call of a kernel wrapper with `rule`."""
+        raise NotImplementedError
+
+    def decomposes(self, func) -> bool:
+        return True
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        rule = _RULES.get(func.overloadpacket)
-        if rule is None:
+        if self.decomposes(func):
             # Under inference mode the composite ops (conv2d, linear,
             # matmul, einsum) reach the mode whole: their parts are
             # counted through their decomposition.
@@ -113,35 +137,98 @@ class FlopCounter(TorchDispatchMode):
             if out is not NotImplemented:
                 return out
         out = func(*args, **kwargs)
-        if rule is not None and not self.suspended:
-            self.add(func.overloadpacket.__name__, rule(args, out))
+        if not self.suspended:
+            charge = self.op_charge(func, args, kwargs, out)
+            if charge is not None:
+                self.add(func.overloadpacket.__name__, charge)
         return out
+
+
+class FlopCounter(_Counter):
+    """Sums the FLOP charges of the aten ops run under it (`total`, and
+    `by_op`, by op or kernel name). Kernel wrappers add theirs through
+    `charged`."""
+
+    def decomposes(self, func) -> bool:
+        return func.overloadpacket not in _RULES
+
+    def op_charge(self, func, args, kwargs, out) -> Optional[float]:
+        rule = _RULES.get(func.overloadpacket)
+        return None if rule is None else rule(args, out)
+
+    def call_charge(self, rule, args, kwargs, out) -> float:
+        return rule(*args, **kwargs)
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a nest of tuples, lists and dicts."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, (tuple, list)):
+        return sum(tensor_bytes(t) for t in tree)
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(t) for t in tree.values())
+    return 0
+
+
+# Ops that move no bytes though their schema does not mark them views.
+_NO_TRAFFIC = {"_unsafe_view", "empty", "empty_like", "empty_strided",
+               "new_empty", "new_empty_strided", "lift_fresh"}
+# In-place ops that write their first argument without reading it.
+_WRITE_ONLY = {"copy_", "fill_", "zero_"}
+
+
+class ByteCounter(_Counter):
+    """Sums the bytes the aten ops run under it read and write (`total`,
+    and `by_op`). Kernel wrappers add their inputs and outputs through
+    `charged`."""
+
+    def op_charge(self, func, args, kwargs, out) -> Optional[float]:
+        name = func.overloadpacket.__name__
+        if func.is_view or name in _NO_TRAFFIC:
+            return None
+        schema = func._schema.arguments
+        read = 0
+        for i, a in enumerate(args):
+            written = i < len(schema) and schema[i].alias_info is not None \
+                and schema[i].alias_info.is_write
+            if not (written and name in _WRITE_ONLY):
+                read += tensor_bytes(a)
+        # A keyword `out=` tensor is written only: the result counts it.
+        read += sum(tensor_bytes(v) for k, v in kwargs.items() if k != "out")
+        return float(read + tensor_bytes(out))
+
+    def call_charge(self, rule, args, kwargs, out) -> float:
+        return float(tensor_bytes((args, kwargs)) + tensor_bytes(out))
 
 
 def _active():
     return [m for m in _get_current_dispatch_mode_stack()
-            if isinstance(m, FlopCounter)]
+            if isinstance(m, _Counter)]
 
 
 def charged(rule: Callable[..., float]) -> Callable:
-    """Decorator of a kernel's wrapper and of its plain version:
-    `rule(*args, **kwargs)` of the call is charged to every active
-    FlopCounter, and the counter ignores the aten ops the call runs.
-    A call made inside another charged call adds nothing (the wrapper
-    that takes its plain version on the CPU is charged once)."""
+    """Decorator of a kernel's wrapper and of its plain version: each
+    active FlopCounter is charged `rule(*args, **kwargs)` of the call,
+    each active ByteCounter the bytes of the call's tensor arguments and
+    results, and the counters ignore the aten ops the call runs. A call
+    made inside another charged call adds nothing (the wrapper that
+    takes its plain version on the CPU is charged once)."""
 
     def deco(fn):
         @functools.wraps(fn)
         def run(*args, **kwargs):
             counters = [c for c in _active() if not c.suspended]
             for c in counters:
-                c.add(fn.__name__, rule(*args, **kwargs))
                 c.suspended += 1
             try:
-                return fn(*args, **kwargs)
+                out = fn(*args, **kwargs)
             finally:
                 for c in counters:
                     c.suspended -= 1
+            for c in counters:
+                c.add(fn.__name__, c.call_charge(rule, args, kwargs, out))
+            return out
         return run
 
     return deco
@@ -155,9 +242,20 @@ def count_flops(fn: Callable, *args: Any, **kwargs: Any) -> float:
     return counter.total
 
 
+def count_bytes(fn: Callable, *args: Any, **kwargs: Any) -> float:
+    """Total bytes read and written by one call of `fn`, which this runs
+    (forward, and backward where `fn` calls it): run it on a copy of any
+    state that must not move."""
+    with ByteCounter() as counter:
+        fn(*args, **kwargs)
+    return counter.total
+
+
 # NVIDIA's dense bf16 tensor-core rate of the H100 SXM5 (data sheet), at
 # its full 700 W power limit.
 H100_BF16_PEAK = 989.4e12
+# Its HBM3 rate (data sheet).
+H100_HBM_BYTES_PER_S = 3.35e12
 
 
 def card_name_and_power() -> str:
@@ -174,17 +272,32 @@ def card_name_and_power() -> str:
     return out.strip().splitlines()[0] if out.strip() else "no card"
 
 
+def card_of(device) -> str:
+    """`card_name_and_power()` for a CUDA device, "the CPU" for the CPU:
+    where a measurement was taken."""
+    return card_name_and_power() if torch.device(device).type == "cuda" \
+        else "the CPU"
+
+
+def _is_h100_sxm(device) -> bool:
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return False
+    name = torch.cuda.get_device_name(dev)
+    return "H100" in name and "PCIe" not in name and "NVL" not in name
+
+
 def peak_flops(device) -> Optional[float]:
     """The dense bf16 peak of `device`'s card: H100_BF16_PEAK on an H100
     SXM, else None (no other card's figure is taken for it; the PCIe and
     NVL parts have lower rates)."""
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        return None
-    name = torch.cuda.get_device_name(dev)
-    if "H100" not in name or "PCIe" in name or "NVL" in name:
-        return None
-    return H100_BF16_PEAK
+    return H100_BF16_PEAK if _is_h100_sxm(device) else None
+
+
+def peak_bandwidth(device) -> Optional[float]:
+    """The HBM rate of `device`'s card in bytes/s: H100_HBM_BYTES_PER_S
+    on an H100 SXM, else None, as `peak_flops`."""
+    return H100_HBM_BYTES_PER_S if _is_h100_sxm(device) else None
 
 
 def mfu_report(flops: float, seconds: float, device) -> str:
@@ -193,8 +306,7 @@ def mfu_report(flops: float, seconds: float, device) -> str:
     limit; MFU "unknown" on a card that is not an H100 (or the CPU)."""
     peak = peak_flops(device)
     rate = flops / seconds / 1e12
-    where = card_name_and_power() if torch.device(device).type == "cuda" \
-        else "the CPU"
+    where = card_of(device)
     if peak is None:
         return (f"{rate:.3f} TFLOP/s on {where}; MFU unknown (no dense "
                 f"bf16 peak for this device)")

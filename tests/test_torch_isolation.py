@@ -1,10 +1,10 @@
 """The PyTorch port stands alone: no module of livecell_tpu_torch/ and
 not chip_smoke.py, cli_seed_spread.py, train_step_ab.py or
-quality_run.py imports JAX, its libraries or the JAX package, and none
-imports PIL, matplotlib, gradio, requests or tqdm when it is imported
-(the card's machine has none of them; the drawing and serving ones are
-imported inside the functions that draw or serve, and the downloader
-takes urllib)."""
+quality_run.py imports JAX, its libraries, the JAX package or the test
+helpers under tests/, and none imports PIL, matplotlib, gradio,
+requests or tqdm when it is imported (the card's machine has none of
+them; the drawing and serving ones are imported inside the functions
+that draw or serve, and the downloader takes urllib)."""
 
 import ast
 from pathlib import Path
@@ -12,8 +12,10 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
+# The port and its scripts import nothing of the tests either: they keep
+# their own copy of what they need.
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex",
-             "livecell_tpu")
+             "livecell_tpu", "tests")
 # Not on the card's machine: imported only inside functions.
 NOT_ON_CARD = ("PIL", "matplotlib", "gradio", "requests", "tqdm")
 FILES = sorted(str(p.relative_to(ROOT))
@@ -51,9 +53,15 @@ def test_scan_covers_the_package():
                 "utils/flops.py", "utils/profiling.py", "data/download.py",
                 "data/dvc.py", "tools/synth_splits.py", "tools/gt_bound.py",
                 "tools/eval_ckpt.py", "tools/oracle_probe.py",
-                "tools/quality_matrix.py", "tools/dense_sweep.py"):
+                "tools/quality_matrix.py", "tools/dense_sweep.py",
+                "tools/trace_summary.py", "tools/profile_step.py",
+                "tools/profile_transfer.py", "tools/roofline.py",
+                "tools/bench_serve.py", "tools/bench_transfer_nms.py",
+                "tools/check_torch_import.py", "tools/bench_conv1.py",
+                "tools/bench_roi_blocks.py", "tools/bench_nms.py",
+                "tools/steps.py"):
         assert "livecell_tpu_torch/" + rel in FILES
-    assert len(FILES) >= 46
+    assert len(FILES) >= 56
 
 
 @pytest.mark.parametrize("rel", FILES)
