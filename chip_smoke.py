@@ -125,10 +125,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      their frame predictors' pinned, non-blocking dispatch and fetch)
      driven by serve/pipeline.py:run_pipelined, with a consume that
      builds the panels with numpy only (GT overlay, both models'
-     prediction overlays, composited over reconstruct_full_image; PIL
-     and matplotlib are not on the card's machine): load_tiles equal to
-     the drawn tiles and the reconstructed frame to the drawn frame bit
-     for bit, pipelined detections equal to each predictor's serial
+     prediction overlays, composited over reconstruct_full_image, held
+     as arrays; matplotlib is not on the card's machine): load_tiles
+     equal to the drawn tiles and the reconstructed frame to the drawn
+     frame bit for bit, pipelined detections equal to each predictor's serial
      run() bit for bit, no frame lost or failed, K1/K2 once per custom
      RoIAlign pass (two with decode_proposals) and K5 twice per
      transfer frame, K1/K2 and K5 against their plain versions on the
@@ -161,14 +161,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
      process on the card, its JSON parsed and its times finite and > 0,
      the launches of each path the tools drive counted per call; the
      roofline FLOPs of T2 and T3 equal to phase 18's.
+ 21. real-data runbook (phase_runbook): tools/run_real_livecell.py:main
+     with the real subprocess.run over a "sparse" LIVECell source tree
+     of 14/3/3 grey TIFF frames (tools/synth_splits.make_fake_livecell),
+     NUM_IMAGES=20 SKIP_DOWNLOAD=1 EPOCHS=10 BATCH_SIZE=16, the weights'
+     URL refused: validation passes, 350/75/75 tiles, the data pointer
+     equal to data/dvc.py's hash of its tree, both custom checkpoints
+     (quirk and flagship) load and name their model, each trainer
+     prints its test mask AP (flagship AP50 >= 0.5), the transfer stage
+     is skipped with its WARNING, a panel a test frame; a re-run starts
+     only validate, both pointers (then equal to their trees) and
+     visualize, and retrains nothing; a seeded torchvision-layout file
+     at the weights' path stops a third run with exit 1 before any
+     child of the transfer stage. Prints each stage's seconds and the
+     tiling frames/s. The children's kernels run in their own
+     processes and are not counted.
 
 Each phase prints its seconds. Prints the kernels' JSON line, then as
 the last line {"ok": true, "device": {...}}. Writes nothing outside the
 checkout but, under $TMPDIR, a temporary checkpoint, the split of
 phases 13-14, the splits and working directories of phases 15 and 16,
 each removed when its phase ends, the split of phase 17 and copies of
-the two trained checkpoints, removed when phase 17 ends; the kernels
-build into a directory inside the package.
+the two trained checkpoints, removed when phase 17 ends, and phase
+21's working directory, removed when it ends; the kernels build into a
+directory inside the package.
 """
 
 from __future__ import annotations
@@ -2301,7 +2317,8 @@ def phase_serve_fronts(root, ckpts: dict, smi: str) -> dict:
     "sparse" test split with the checkpoints phases 15 and 16 trained
     (model 1 custom, model 2 transfer), its panels built with numpy only
     (GT and prediction overlays composited over the reconstructed
-    frame; PIL and matplotlib are not on this machine): load_tiles and
+    frame, held as arrays; matplotlib is not on this machine): load_tiles
+    and
     reconstruct_full_image equal to the drawn frames, pipelined
     detections equal to each predictor's serial run bit for bit, K1/K2
     once per custom RoIAlign pass and K5 twice per transfer frame, K1/K2
@@ -3683,6 +3700,371 @@ def phase_measure_tools(root: Path, flops18: dict, smi: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The real-data runbook (phase 21).
+# ---------------------------------------------------------------------------
+# Cell (g)'s size: a "sparse" LIVECell source tree of 14/3/3 frames,
+# tiled 70/15/15 -> 350/75/75 tiles. The runbook's knobs: JAX's epochs
+# and batch, NUM_IMAGES cut from 100 to the tree's 20 frames.
+RUNBOOK_FRAMES = (14, 3, 3)
+RUNBOOK_TILES = {"train": 350, "val": 75, "test": 75}
+RUNBOOK_ENV = {"NUM_IMAGES": "20", "EPOCHS": "10", "BATCH_SIZE": "16",
+               "SKIP_DOWNLOAD": "1"}
+# Refuses at once: there is no network, and the weights step must not
+# hang.
+REFUSED_URL = "http://127.0.0.1:9/"
+# The children of a first run, in order, and each one's name in the
+# phase's line.
+RUNBOOK_STAGES = (("data.validate", "validate"), ("data.tiling", "tiling"),
+                  ("data.dvc", "dvc data"), ("data.dvc", "dvc data_split"),
+                  ("train.train_custom", "train quirk"),
+                  ("train.train_custom", "train flagship"),
+                  ("serve.visualize", "visualize"))
+
+
+def runbook(rrl, work: Path, env: dict, log: Path) -> dict:
+    """One run_real_livecell.main over `work` with its default runner
+    (real child processes, their output streamed), its output captured:
+    its exit code, the records of its children (None when it exited
+    early), the children it started (the "== module ==" lines it prints
+    before each), its output, and each child's kernel launches, which
+    the children append to `log` at their exit (ops/launch_log.py)."""
+    import io
+    from livecell_tpu_torch.ops import launch_log
+    out, err = io.StringIO(), io.StringIO()
+    records, rc = None, 0
+    try:
+        with patched(rrl, {"TV_URL": REFUSED_URL}), \
+                contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            records = rrl.main([str(work)],
+                               env={**env, launch_log.ENV: str(log)})
+    except SystemExit as e:
+        rc = e.code
+    text = out.getvalue()
+    started = [ln[3:-3] for ln in text.splitlines()
+               if ln.startswith("== ") and ln.endswith(" ==")
+               and " " not in ln[3:-3]]
+    # One line a child, in the order they ended; the module from the
+    # file `python -m` ran.
+    rows = [json.loads(ln) for ln in log.read_text().splitlines()] \
+        if log.exists() else []
+    launches = [(Path(r["argv"][0]).with_suffix("").as_posix().split(
+        "livecell_tpu_torch/", 1)[-1].replace("/", "."), r["launches"])
+        for r in rows]
+    return dict(rc=rc, records=records, started=started, out=text,
+                err=err.getvalue(), launches=launches)
+
+
+def runbook_launches(run: dict, names) -> dict:
+    """{stage name: its child's launches}; raises unless one child of the
+    port's modules wrote its counts for each child started, in order."""
+    mods = [m for m, _ in run["launches"]]
+    if mods != run["started"]:
+        raise AssertionError(f"runbook: launch counts from {mods}, "
+                             f"children {run['started']}")
+    return {name: counts for name, (_, counts) in zip(names,
+                                                      run["launches"])}
+
+
+def runbook_want(tiles: dict, names) -> dict:
+    """The launches each runbook child must make: the trainers K1-K4 once
+    a training step, K1/K2 once a RoIAlign pass of each eval batch
+    (validation every epoch, the test box metrics and the AP sweep; two
+    passes with decode_proposals); visualize K1/K2 twice a test frame
+    (a batch of its 25 tiles, decode_proposals); the data stages none."""
+    epochs, batch = int(RUNBOOK_ENV["EPOCHS"]), int(RUNBOOK_ENV["BATCH_SIZE"])
+    steps = tiles["train"] // batch * epochs
+    evals = epochs * math.ceil(tiles["val"] / batch) + \
+        2 * math.ceil(tiles["test"] / batch)
+    zero = dict.fromkeys(("roi_weights", "roi_align_fwd", "roi_align_bwd",
+                          "match_anchors", "ms_roi_align_fwd",
+                          "ms_roi_align_bwd"), 0)
+
+    def trainer(passes):
+        return {**zero, "roi_weights": steps + passes * evals,
+                "roi_align_fwd": steps + passes * evals,
+                "roi_align_bwd": steps, "match_anchors": steps}
+    frames = RUNBOOK_FRAMES[2]
+    want = {"train quirk": trainer(1), "train flagship": trainer(2),
+            "visualize": {**zero, "roi_weights": 2 * frames,
+                          "roi_align_fwd": 2 * frames}}
+    return {name: want.get(name, zero) for name in names}
+
+
+def printed_metrics(stdout: str) -> dict:
+    """A trainer child's printed validation F1 (one an epoch), its test
+    line and its test mask AP line."""
+    import re
+    val = [float(m.group(1)) for m in re.finditer(
+        r"  Validation: .* F1 ([\d.]+)", stdout)]
+    test = re.search(r"  Test: IoU ([\d.]+) \| P ([\d.]+) \| R ([\d.]+) "
+                     r"\| F1 ([\d.]+)", stdout)
+    ap = re.search(r"  Mask AP: ([\d.]+) \(AP50 ([\d.]+), AP75 ([\d.]+)\)",
+                   stdout)
+    return dict(
+        val_f1=val,
+        test=test and dict(zip(("iou", "precision", "recall", "f1"),
+                               map(float, test.groups()))),
+        mask_ap=ap and dict(zip(("AP", "AP50", "AP75"),
+                                map(float, ap.groups()))))
+
+
+def runbook_witness(work: Path, printed: dict) -> dict:
+    """Both runbook checkpoints in process over the test split: eval_ckpt
+    (box P/R/F1, mask and box AP, the count of detections the eval step
+    returns for the 75 test tiles and their best score) and oracle_probe
+    (arm A the mask-target ceiling, B the mask head at the GT boxes, C
+    the detections' best box and mask IoU for each GT), each with K1/K2
+    counted per batch. eval_ckpt must give the trainer's printed test
+    F1 and mask AP within 1.5e-4 (both are printed to 4 digits)."""
+    import io
+    from livecell_tpu_torch.tools import eval_ckpt, oracle_probe
+    from livecell_tpu_torch.tools.run_real_livecell import LIFTED_CAPS
+    counters = {k: fn for k, fn in eval_counters().items()
+                if k != "ms_roi_align_fwd"}
+    split = str(work / "data_split")
+    n_test = RUNBOOK_TILES["test"]
+    out = {}
+    for name, caps, passes in (("custom_quirk", [], 1),
+                               ("custom_fixed", LIFTED_CAPS, 2)):
+        ckpt = str(work / "models" / f"{name}.ckpt")
+        tally = dict(rows=0, detections=0, best_score=0.0)
+        make = eval_ckpt.make_eval_step
+
+        def counted(*a, **k):
+            step = make(*a, **k)
+
+            def run(images):
+                det = step(images)
+                take = min(det.valid.shape[0], n_test - tally["rows"])
+                valid = det.valid[:take]
+                tally["rows"] += take
+                tally["detections"] += int(valid.sum())
+                if bool(valid.any()):
+                    tally["best_score"] = max(
+                        tally["best_score"],
+                        float(det.scores[:take][valid].max()))
+                return det
+            return run
+        zeroed(counters)
+        with patched(eval_ckpt, {"make_eval_step": counted}):
+            row, _ = run_tool(eval_ckpt, ["--ckpt", ckpt, "--data_dir",
+                                          split] + caps)
+        torch.cuda.synchronize()
+        batches = math.ceil(n_test / 16)
+        eval_l = {k: c.launches / batches for k, c in counters.items()}
+        zeroed(counters)
+        with contextlib.redirect_stdout(io.StringIO()):
+            probe = oracle_probe.main(["--ckpt", ckpt, "--data_dir", split,
+                                       "--batch_size", "16"] + caps)
+        torch.cuda.synchronize()
+        probe_l = {k: c.launches / batches for k, c in counters.items()}
+        torch.cuda.empty_cache()
+        mine = printed[name]
+        gaps = {"f1": row["f1"] - mine["test"]["f1"],
+                **{f"mask_{k}": row[f"mask_{k}"] - mine["mask_ap"][k]
+                   for k in ("AP", "AP50", "AP75")}}
+        out[name] = dict(
+            eval_ckpt=row, detections=tally["detections"],
+            tiles=tally["rows"], best_score=tally["best_score"],
+            oracle={arm: {k: probe[arm][k] for k in
+                          ("n", "mean", "frac_ge_50", "frac_ge_75")}
+                    for arm in oracle_probe.ARMS if arm in probe},
+            gaps=gaps, launches_per_eval_batch=eval_l,
+            launches_per_oracle_batch=probe_l)
+        if not (all(abs(g) <= 1.5e-4 for g in gaps.values())
+                and tally["rows"] == n_test
+                and eval_l == {"roi_weights": passes,
+                               "roi_align_fwd": passes}
+                and probe_l == {"roi_weights": passes + 1,
+                                "roi_align_fwd": passes + 1}):
+            raise AssertionError(f"runbook witness {name}: "
+                                 f"{json.dumps(out[name])}")
+    return out
+
+
+def ckpt_mtimes(models: Path) -> dict:
+    return {str(p.relative_to(models)): p.stat().st_mtime_ns
+            for p in sorted(models.rglob("*")) if p.is_file()}
+
+
+def pointer_md5(path: Path) -> str:
+    return next(ln.split(": ", 1)[1] for ln in path.read_text().splitlines()
+                if ln.startswith("- md5: "))
+
+
+def phase_runbook(root: Path, smi: str) -> dict:
+    """21. tools/run_real_livecell.py:main on a "sparse" LIVECell source
+    tree (tools/synth_splits.make_fake_livecell, 14/3/3 grey TIFF
+    frames), each child a real process, NUM_IMAGES=20 SKIP_DOWNLOAD=1
+    and JAX's EPOCHS=10 BATCH_SIZE=16, the weights' URL refused: validate
+    passes, 25 tiles a frame (350/75/75), both pointers equal
+    data/dvc.py's hash of their trees, both custom checkpoints load and
+    name their model, each trainer prints its test mask AP (the
+    flagship's AP50 >= MIN_TEST_MASK_AP50), the transfer stage is
+    skipped with the WARNING, one panel a test frame. A second run
+    retrains nothing; a third, with a seeded torchvision-layout file at
+    the weights' path, exits 1 on the prefix pin and trains nothing.
+    Each child writes its kernel launches at its exit (ops/launch_log.py)
+    and every run's must be runbook_want's: K1-K4 in both trainers, K1/K2
+    in visualize, none in the data stages. Then runbook_witness
+    evaluates both checkpoints in process (detections, F1, the oracle
+    arms). Phase 15 holds K1-K4 against their plain versions on the
+    trainer's inputs."""
+    import os
+    from livecell_tpu_torch.data import dvc
+    from livecell_tpu_torch.data.png import read_png
+    from livecell_tpu_torch.tools import run_real_livecell as rrl
+    from livecell_tpu_torch.tools.synth_splits import (
+        MODES, make_fake_livecell)
+    from livecell_tpu_torch.train import checkpoint
+
+    work = root / "livecell_run"
+    make_fake_livecell(work / "data", images_per_split=RUNBOOK_FRAMES,
+                       seed=SEED + 21, **MODES["sparse"])
+    env = {**os.environ, **RUNBOOK_ENV}
+    models = work / "models"
+
+    def failed(label: str, run: dict):
+        log(run["out"][-4000:])
+        log(run["err"][-4000:])
+        raise AssertionError(f"runbook {label}: exit {run['rc']}, "
+                             f"children {run['started']}")
+
+    names = [name for _, name in RUNBOOK_STAGES]
+    first = runbook(rrl, work, env, root / "launches_first.jsonl")
+    if first["rc"] != 0 or first["started"] != [
+            m for m, _ in RUNBOOK_STAGES]:
+        failed("first run", first)
+    recs = first["records"]
+    seconds = {name: r["seconds"]
+               for (_, name), r in zip(RUNBOOK_STAGES, recs)}
+    validate = recs[0]
+    tiles = {s: len(list((work / "data_split" / s / "images").glob(
+        "*.png"))) for s in ("train", "val", "test")}
+    printed = {name: printed_metrics(r["stdout"]) for r, name in zip(
+        recs[4:6], ("custom_quirk", "custom_fixed"))}
+    aps = {name: m["mask_ap"] for name, m in printed.items()}
+    ckpts = {}
+    for name in ("custom_quirk", "custom_fixed"):
+        kind, cfg, sd = checkpoint.load_model_state(
+            str(models / f"{name}.ckpt"), "cuda")
+        ckpts[name] = dict(model_type=kind,
+                           decode_proposals=cfg.decode_proposals,
+                           heads_all_images=cfg.heads_all_images,
+                           tensors=len(sd))
+        del sd
+    torch.cuda.empty_cache()
+    panels = sorted(p.name for p in (work / "visualizations").glob(
+        "*_GT_VS_PREDICTIONS.png"))
+    want_panels = [f"A172_Phase_test_{i:03d}_GT_VS_PREDICTIONS.png"
+                   for i in range(RUNBOOK_FRAMES[2])]
+    panel_shape = read_png(work / "visualizations" / want_panels[0]).shape \
+        if panels == want_panels else None
+    data_md5 = pointer_md5(work / "data.dvc")
+    res = dict(
+        rc=first["rc"], children=first["started"], stage_s=seconds,
+        tiling_frames_per_s=sum(RUNBOOK_FRAMES) / seconds["tiling"],
+        validate_ok=validate["stdout"].count("[OK]") == 3
+        and "[FAIL]" not in validate["stdout"],
+        tiles=tiles, test_mask_ap=aps,
+        trainer_f1={name: dict(val=m["val_f1"], test=m["test"])
+                    for name, m in printed.items()},
+        launches={"first": runbook_launches(first, names)},
+        checkpoints=ckpts,
+        warning=[ln for ln in first["out"].splitlines()
+                 if ln.startswith("WARNING")],
+        panels=panels, panel_shape=panel_shape,
+        data_dvc_equal=data_md5 == dvc.dir_hash(
+            dvc.dir_manifest(work / "data")))
+    if not (res["validate_ok"]
+            and tiles == RUNBOOK_TILES
+            and res["launches"]["first"] == runbook_want(tiles, names)
+            and all(m["test"] and len(m["val_f1"]) == int(
+                RUNBOOK_ENV["EPOCHS"]) for m in printed.values())
+            and all(c["model_type"] == "custom" for c in ckpts.values())
+            and ckpts["custom_fixed"]["decode_proposals"]
+            and ckpts["custom_fixed"]["heads_all_images"]
+            and not ckpts["custom_quirk"]["decode_proposals"]
+            and all(aps.values()) and len(res["warning"]) == 1
+            and res["warning"][0].startswith(
+                "WARNING: torchvision weights unreachable")
+            and not (work / rrl.WEIGHTS).exists()
+            and not (models / "transfer_real.ckpt").exists()
+            and panels == want_panels and panel_shape is not None
+            and res["data_dvc_equal"]):
+        log(f"[runbook] {json.dumps(res)}")
+        failed("first run checks", first)
+
+    # The re-run: validate, both pointers and visualize only; nothing is
+    # retrained. The pointers now cover the trainers' dataset caches too.
+    before = ckpt_mtimes(models)
+    rerun = ("validate", "dvc data", "dvc data_split", "visualize")
+    second = runbook(rrl, work, env, root / "launches_second.jsonl")
+    if second["rc"] != 0:
+        failed("re-run", second)
+    res["rerun_children"] = second["started"]
+    res["rerun_s"] = {name: r["seconds"] for name, r in zip(
+        rerun, second["records"])}
+    res["launches"]["second"] = runbook_launches(second, rerun)
+    res["pointers_equal"] = {
+        name: pointer_md5(work / f"{name}.dvc") == dvc.dir_hash(
+            dvc.dir_manifest(work / name)) for name in ("data", "data_split")}
+    if not (second["started"] == ["data.validate", "data.dvc", "data.dvc",
+                                  "serve.visualize"]
+            and ckpt_mtimes(models) == before
+            and all(res["pointers_equal"].values())
+            and res["launches"]["second"] == runbook_want(tiles, rerun)):
+        log(f"[runbook] {json.dumps(res)}")
+        failed("re-run checks", second)
+
+    # Weights that fail the pin: exit 1 before any child of the transfer
+    # stage, nothing trained.
+    torch.save(fake_torchvision_state_dict(), work / rrl.WEIGHTS)
+    weights = str((work / rrl.WEIGHTS).relative_to(models))
+    third = runbook(rrl, work, env, root / "launches_third.jsonl")
+    errors = [ln for ln in third["err"].splitlines()
+              if ln.startswith("ERROR")]
+    refused = ("validate", "dvc data", "dvc data_split")
+    res["refused"] = dict(rc=third["rc"], children=third["started"],
+                          error=errors,
+                          launches=runbook_launches(third, refused))
+    if not (third["rc"] == 1 and len(errors) == 1
+            and errors[0].startswith("ERROR: weight sha256 prefix ")
+            and third["started"] == ["data.validate", "data.dvc",
+                                     "data.dvc"]
+            and {k: v for k, v in ckpt_mtimes(models).items()
+                 if k != weights} == before
+            and not (models / "transfer_real.ckpt").exists()
+            and res["refused"]["launches"] == runbook_want(tiles, refused)):
+        log(f"[runbook] {json.dumps(res)}")
+        failed("refused weights", third)
+
+    res["witness"] = runbook_witness(work, printed)
+
+    log(f"[runbook] {smi} | {json.dumps(res)}")
+    fixed = aps["custom_fixed"]
+    log(f"[runbook] {smi} | stage seconds {json.dumps(seconds)}; tiling "
+        f"{res['tiling_frames_per_s']:.3f} frames/s (the child's wall "
+        f"time, start-up included); test mask AP quirk "
+        f"{aps['custom_quirk']['AP']:.4f} / flagship {fixed['AP']:.4f} "
+        f"(AP50 {fixed['AP50']:.4f})")
+    for name, w in res["witness"].items():
+        m = printed[name]
+        log(f"[runbook] {smi} | {name}: validation F1 by epoch "
+            f"{m['val_f1']}; test F1 {m['test']['f1']:.4f} (P "
+            f"{m['test']['precision']:.4f}, R {m['test']['recall']:.4f}); "
+            f"{w['detections']} detections on {w['tiles']} test tiles, "
+            f"best score {w['best_score']:.4f}; box AP50 "
+            f"{w['eval_ckpt']['box_AP50']:.4f}; oracle arms "
+            f"{json.dumps(w['oracle'])}")
+    if not fixed["AP50"] >= MIN_TEST_MASK_AP50:
+        raise AssertionError(f"runbook: flagship test mask AP50 "
+                             f"{fixed['AP50']:.4f} < {MIN_TEST_MASK_AP50}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3855,6 +4237,12 @@ def main() -> int:
     cases += measure["cases"]
     torch.cuda.empty_cache()
 
+    # 21. the real-data runbook, its children on the card, from a
+    # directory removed when the phase ends.
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase(21, "runbook"):
+            runbook_res = phase_runbook(Path(tmp), smi)
+
     # The kernels' line: every kernel's headline case at its training
     # step's shape (K1-K3: B = 32, K = 128 bf16; K4: T2's full form; K5,
     # K6: T3's B = 4, K = 512 at 7x7, bf16), `launches` from the timed
@@ -3915,6 +4303,16 @@ def main() -> int:
         per_path.update({path: r[kname] for path, r in
                          measure["launches_per_call"].items()
                          if r.get(kname)})
+        for run, counts in runbook_res["launches"].items():
+            per_path.update({f"runbook {run} run, {stage} child (total)": n
+                             for stage, n in ((st, c[kname])
+                                              for st, c in counts.items())
+                             if n})
+        for name, w in runbook_res["witness"].items():
+            for tool in ("eval", "oracle"):
+                n = w[f"launches_per_{tool}_batch"].get(kname)
+                if n:
+                    per_path[f"runbook {name} {tool} batch"] = n
         path = "T3" if kname.startswith("ms_") else "T2"
         kernels.append(dict(
             name=kname, route="cuda",

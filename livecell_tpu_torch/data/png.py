@@ -9,7 +9,9 @@ without PIL (the data path runs where PIL is not installed): 8-bit
 grey, RGB, palette, grey+alpha and RGBA images, non-interlaced, with
 every scanline filter (0-4), into uint8 [H, W, 3] as PIL's
 `Image.open(p).convert("RGB")` gives them: grey is widened to three
-equal channels, a palette is looked up, alpha is dropped. Interlaced files and bit depths other than 8 raise.
+equal channels, a palette is looked up, alpha is dropped. Interlaced
+files, bit depths other than 8 and unknown colour types raise
+UnsupportedImage; a file that does not decode raises ValueError.
 """
 
 from __future__ import annotations
@@ -22,6 +24,12 @@ import numpy as np
 _SIG = b"\x89PNG\r\n\x1a\n"
 # Samples per pixel of each 8-bit colour type.
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+class UnsupportedImage(ValueError):
+    """A well-formed image file in a form the port's readers do not read
+    (data/png.py, data/tiff.py): unlike a corrupt file, it is not skipped
+    by the tiler."""
 
 
 def _chunk(typ: bytes, data: bytes) -> bytes:
@@ -120,11 +128,13 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError("PNG has no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = ihdr
     if interlace:
-        raise ValueError("interlaced PNG is not supported")
+        raise UnsupportedImage("interlaced PNG is not supported")
     if depth != 8:
-        raise ValueError(f"PNG bit depth {depth} is not supported (8 only)")
+        raise UnsupportedImage(f"PNG bit depth {depth} is not supported "
+                               "(8 only)")
     if ctype not in _CHANNELS:
-        raise ValueError(f"PNG colour type {ctype} is not supported")
+        raise UnsupportedImage(f"PNG colour type {ctype} is not "
+                               "supported")
     if ctype == 3 and palette is None:
         raise ValueError("palette PNG without a PLTE chunk")
     bpp = _CHANNELS[ctype]

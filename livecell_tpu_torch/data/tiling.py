@@ -18,8 +18,11 @@ CLI flags keep the reference names:
       --output_dir data_split --num_images_per_split 100
 
 `tile_frame` is the numpy body that cuts one decoded frame into tiles;
-`LIVECellPreprocessor.process_image` reads a source frame with PIL
-(imported there, so this module imports without PIL) and calls it.
+`LIVECellPreprocessor.process_image` reads a source frame with
+`read_frame` (TIFF and PNG without PIL) and calls it. A frame that does
+not decode is skipped, as the reference skips it; a TIFF or PNG in a
+form the port's readers do not read (data/png.py:UnsupportedImage)
+stops the run.
 """
 
 from __future__ import annotations
@@ -33,9 +36,31 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from livecell_tpu_torch.data.coco import CocoIndex, rle_decode, rle_encode
-from livecell_tpu_torch.data.png import write_gray_png
+from livecell_tpu_torch.data.png import (
+    UnsupportedImage, read_png, write_gray_png)
+from livecell_tpu_torch.data.tiff import read_tiff
 
 TILES_PER_IMAGE = 25
+
+
+def read_frame(path) -> np.ndarray:
+    """A source frame as uint8 [H, W, 3], as PIL's
+    `Image.open(path).convert("RGB")` gives it: TIFF and PNG files
+    through the port's own readers (data/tiff.py, data/png.py), any
+    other file through PIL (imported here, so a TIFF or PNG tree needs
+    no PIL). UnsupportedImage names the file."""
+    ext = Path(path).suffix.lower()
+    try:
+        if ext in (".tif", ".tiff"):
+            return read_tiff(path)
+        if ext == ".png":
+            return read_png(path)
+    except UnsupportedImage as e:
+        raise UnsupportedImage(f"{path}: {e}") from None
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
 
 
 def tile_grid(img_w: int, img_h: int, grid_size: int) -> Tuple[int, int]:
@@ -245,21 +270,19 @@ class LIVECellPreprocessor:
 
     def process_image(self, img_info: Dict, annotations: List[Dict],
                       img_counter: Dict[str, int], split: str) -> List[Dict]:
-        from PIL import Image
-
         path = self._find_image(split, img_info["file_name"])
         if path is None:
             print(f"Image not found: {img_info['file_name']}, skipping")
             return []
         try:
-            img = Image.open(path)
-            if img.mode != "RGB":
-                img = img.convert("RGB")
+            img = read_frame(path)
+        except UnsupportedImage:
+            raise
         except Exception as e:  # corrupt file: skip, like the reference
             print(f"Failed to load {path}: {e}, skipping")
             return []
         results = tile_frame(
-            np.asarray(img), img_info, annotations,
+            img, img_info, annotations,
             self.output_dir / split / "images", img_counter[split],
             self.grid_size, self.window, self.png_compress_level)
         img_counter[split] += len(results)
@@ -318,9 +341,12 @@ def main(argv=None):
                         help="Overlap determined by 3x3 sliding window")
     args = parser.parse_args(argv)
 
-    LIVECellPreprocessor(
-        source_dir=args.source_dir, output_dir=args.output_dir,
-        total_images=args.num_images_per_split).preprocess()
+    try:
+        LIVECellPreprocessor(
+            source_dir=args.source_dir, output_dir=args.output_dir,
+            total_images=args.num_images_per_split).preprocess()
+    except UnsupportedImage as e:
+        raise SystemExit(f"tiling stopped: {e}") from None
 
 
 if __name__ == "__main__":

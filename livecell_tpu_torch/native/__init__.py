@@ -1,13 +1,14 @@
 """Host-side data-path routines in C++ (ctypes bindings): the polygon
-rasterizer and the COCO RLE codec of `rasterize.cc`.
+rasterizer, the COCO RLE codec and the TIFF LZW decoder of
+`rasterize.cc`.
 
 The library is built with g++ at first use, not when this module is
 imported, into `livecell_tpu_torch/build/librasterize-<hash>.so` (the
 hash covers the source and the flags). It is compiled to a temporary
 name and renamed into place, so processes that build at once never load
 a half-written file. Without a compiler, or if the build fails,
-`library()` is None and data/coco.py takes its numpy routines instead;
-`backend()` says which path serves.
+`library()` is None and data/coco.py and data/tiff.py take their
+numpy and Python routines instead; `backend()` says which path serves.
 """
 
 from __future__ import annotations
@@ -65,6 +66,10 @@ def library() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int64)]
     lib.rle_encode.restype = ctypes.c_int
+    lib.lzw_decode.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
+    lib.lzw_decode.restype = ctypes.c_int64
     return lib
 
 
@@ -104,3 +109,16 @@ def rle_encode(mask: np.ndarray) -> np.ndarray:
     n = library().rle_encode(_ptr(mask, ctypes.c_uint8), h, w,
                              _ptr(counts, ctypes.c_int64))
     return counts[:n]
+
+
+def lzw_decode(data: bytes, size: int) -> bytes:
+    """TIFF LZW bytes -> at most `size` decoded bytes
+    (data/tiff.py:lzw_decode_plain's result); raises ValueError on a
+    code that is not yet in the table."""
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty(size, np.uint8)
+    n = library().lzw_decode(_ptr(src, ctypes.c_uint8), len(src),
+                             _ptr(out, ctypes.c_uint8), size)
+    if n < 0:
+        raise ValueError("TIFF LZW code that is not in its table")
+    return out[:n].tobytes()

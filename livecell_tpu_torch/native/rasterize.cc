@@ -1,6 +1,7 @@
 // Host-side data-path routines of the port: an even-odd scanline polygon
-// rasterizer (pixel-center sampling) and a column-major COCO RLE decoder
-// and encoder, with a plain C interface for ctypes. The same routines as
+// rasterizer (pixel-center sampling), a column-major COCO RLE decoder
+// and encoder, and the TIFF LZW decoder of data/tiff.py, with a plain C
+// interface for ctypes. The first three are the routines of
 // livecell_tpu/native/rasterize.cc, which the port does not import.
 //
 // Built by livecell_tpu_torch/native/__init__.py:
@@ -97,6 +98,68 @@ int rle_encode(const uint8_t* mask, int h, int w, int64_t* counts) {
   }
   counts[n++] = run;
   return n;
+}
+
+// TIFF LZW (TIFF 6.0, section 13): codes of 9-12 bits, most significant
+// bit first, the width growing when the next free code is 511, 1023 or
+// 2047. Writes at most `cap` bytes to dst and returns their count; stops
+// at the end-of-information code or the end of src. Returns -1 on a code
+// not yet in the table. The routine of data/tiff.py:lzw_decode_plain.
+int64_t lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst,
+                   int64_t cap) {
+  const int kClear = 256, kEoi = 257, kMax = 4096;
+  int32_t prefix[kMax];
+  int32_t length[kMax];
+  uint8_t suffix[kMax];
+  uint8_t first[kMax];
+  for (int i = 0; i < 256; ++i) {
+    prefix[i] = -1;
+    length[i] = 1;
+    suffix[i] = first[i] = static_cast<uint8_t>(i);
+  }
+  int next = 258, width = 9, prev = -1, nbits = 0;
+  uint32_t buf = 0;
+  int64_t pos = 0, out = 0;
+  while (out < cap) {
+    while (nbits < width) {
+      if (pos >= n) return out;
+      buf = (buf << 8) | src[pos++];
+      nbits += 8;
+    }
+    nbits -= width;
+    const int code = static_cast<int>(buf >> nbits);
+    buf &= (1u << nbits) - 1;
+    if (code == kEoi) break;
+    if (code == kClear) {
+      next = 258;
+      width = 9;
+      prev = -1;
+      continue;
+    }
+    if (prev < 0) {
+      if (code > 255) return -1;
+    } else {
+      if (code > next || (code == next && next == kMax)) return -1;
+      if (next < kMax) {
+        const uint8_t head = code < next ? first[code] : first[prev];
+        prefix[next] = prev;
+        suffix[next] = head;
+        first[next] = first[prev];
+        length[next] = length[prev] + 1;
+        ++next;
+      }
+      if (next == 511 || next == 1023 || next == 2047) ++width;
+    }
+    // The entry's bytes, written back to front along its prefix chain.
+    const int64_t len = length[code];
+    for (int c = code, k = static_cast<int>(len) - 1; c >= 0;
+         c = prefix[c], --k) {
+      if (out + k < cap) dst[out + k] = suffix[c];
+    }
+    out = std::min(out + len, cap);
+    prev = code;
+  }
+  return out;
 }
 
 }  // extern "C"

@@ -31,6 +31,7 @@ from livecell_tpu_torch.config import (
     Config, ModelConfig, TileConfig, add_dense_flags, apply_dense_flags)
 from livecell_tpu_torch.config import model_type as type_of
 from livecell_tpu_torch.data.coco import polygons_to_mask, rle_decode
+from livecell_tpu_torch.data.tiling import read_frame
 from livecell_tpu_torch.device import resolve_device
 from livecell_tpu_torch.ops.boxes import box_iou
 from livecell_tpu_torch.serve import app
@@ -315,8 +316,8 @@ def frame_stages(predictors: List, names: List[str], tile_cfg: TileConfig,
     """The decode, dispatch, fetch and consume stages of the CLI's frame
     loop over `predictors` (make_frame_predictor's, one per model).
     Decode reads the tiles and, where the raw tree holds the frame, the
-    raw frame (PIL) and its annotations; dispatch and fetch run every
-    predictor; consume draws the panel."""
+    raw frame (data/tiling.py:read_frame) and its annotations; dispatch
+    and fetch run every predictor; consume draws the panel."""
     def decode(item):
         base_name, tiles_info = item
         tiles = load_tiles(tiles_info, tile_cfg)
@@ -326,10 +327,7 @@ def frame_stages(predictors: List, names: List[str], tile_cfg: TileConfig,
             if os.path.splitext(fname)[0] == base_name or fname == base_name:
                 p = os.path.join(d, fname)
                 if os.path.exists(p):
-                    from PIL import Image
-
-                    with Image.open(p) as im:
-                        original_img = np.asarray(im.convert("RGB"))
+                    original_img = read_frame(p)
                     annotations = ann_by_image.get(fname, [])
                 break
         return tiles, original_img, annotations

@@ -12,8 +12,9 @@ BASELINE.md configs 1, 2 and 5):
 One JSON line a row, under JAX's metric names:
   * tiling_frames_per_sec: a fake LIVECell tree of 8/1/1 frames of 40
     cells (tools/synth_splits.make_fake_livecell) through
-    data/tiling.py's preprocessor, counting every frame it tiles (train
-    + val + test, as JAX's count does); added: "frames".
+    data/tiling.py's preprocessor (its grey TIFFs read by
+    data/tiff.py), counting every frame it tiles (train + val + test,
+    as JAX's count does); added: "frames".
   * single_tile_inference_p50_ms (batch 1, median of 20 calls) and
     full_frame_serve_p50_ms (serve/stitch.py:make_frame_predictor, 25
     tiles, median of 10 frames), each call ended by a synchronize or a
@@ -27,8 +28,8 @@ One JSON line a row, under JAX's metric names:
     which load_tiles widens to RGB), the dispatch double-buffered with
     the fetch; the consume builds each frame's prediction panel with
     numpy (serve/render.py over the reconstructed frame) and writes it
-    with the port's encoder, as chip_smoke.py phase 17 does (PIL and
-    matplotlib are not on the card's machine).
+    with the port's encoder, as chip_smoke.py phase 17 does (matplotlib
+    is not on the card's machine).
 Each device row carries "card", the card's name and power limit. The
 model is the full-width custom model (Config().model) with random
 weights from seed 0. Runs on the card; `main([...], device="cpu")` on

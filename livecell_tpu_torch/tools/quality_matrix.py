@@ -39,10 +39,10 @@ REPO = Path(__file__).resolve().parents[2]
 LIFTED_CAPS = ["--dets", "256", "--infer_nms", "0.7", "--det_nms", "0.6"]
 
 
-def child_env() -> dict:
-    """The environment of a child: this one, with the checkout on the
-    module path."""
-    env = os.environ.copy()
+def child_env(env=None) -> dict:
+    """The environment of a child: `env` (this process's by default),
+    with the checkout on the module path."""
+    env = dict(os.environ if env is None else env)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     return env

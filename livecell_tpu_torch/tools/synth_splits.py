@@ -17,8 +17,8 @@ data/tiling.py, with its 70/15/15 selection over the frames).
 
 Every draw is make_fake_livecell's, in its order, so the source and
 tiled annotations equal the JAX tool's at the same seed and mode. The
-pixels are drawn with numpy and the port's polygon raster (the card's
-machine has no PIL), so they differ from PIL's at cell edges. Nothing
+pixels are drawn with numpy and the port's polygon raster (the data
+path needs no PIL), so they differ from PIL's at cell edges. Nothing
 here touches a device.
 """
 
@@ -34,7 +34,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from livecell_tpu_torch.data.coco import polygons_to_mask
-from livecell_tpu_torch.data.tiling import LIVECellPreprocessor, tile_frame
+from livecell_tpu_torch.data.tiling import LIVECellPreprocessor
 
 MODES = {
     "sparse": dict(cells_per_image=12),
@@ -170,33 +170,15 @@ def make_fake_livecell(root, images_per_split=(4, 1, 1), frame_w=704,
     return frames
 
 
-class DrawnFrameTiler(LIVECellPreprocessor):
-    """data/tiling.py's preprocessor (its selection, ids and JSON) over
-    frames held in memory, so no source image is decoded (the card's
-    machine has no TIFF reader)."""
-
-    def __init__(self, frames: Dict[str, np.ndarray], *args, **kw):
-        super().__init__(*args, **kw)
-        self.frames = frames
-
-    def process_image(self, img_info, annotations, img_counter, split):
-        results = tile_frame(
-            self.frames[img_info["file_name"]], img_info, annotations,
-            self.output_dir / split / "images", img_counter[split],
-            self.grid_size, self.window, self.png_compress_level)
-        img_counter[split] += len(results)
-        return results
-
-
 def build(name: str, root: Path, frames, seed: int) -> None:
     """Draw and tile the `name` split under `root` unless its tiled
     training split is there already."""
     src = root / "src"
     if not (root / "split" / "train").exists():
-        drawn = make_fake_livecell(src, images_per_split=tuple(frames),
-                                   seed=seed, **MODES[name])
-        DrawnFrameTiler(drawn, str(src), str(root / "split"),
-                        total_images=sum(frames)).preprocess()
+        make_fake_livecell(src, images_per_split=tuple(frames), seed=seed,
+                           **MODES[name])
+        LIVECellPreprocessor(str(src), str(root / "split"),
+                             total_images=sum(frames)).preprocess()
     print(f"[{name}] ready at {root}/split", flush=True)
 
 

@@ -59,7 +59,8 @@ def test_scan_covers_the_package():
                 "tools/bench_serve.py", "tools/bench_transfer_nms.py",
                 "tools/check_torch_import.py", "tools/bench_conv1.py",
                 "tools/bench_roi_blocks.py", "tools/bench_nms.py",
-                "tools/steps.py"):
+                "tools/steps.py", "tools/run_real_livecell.py",
+                "data/tiff.py"):
         assert "livecell_tpu_torch/" + rel in FILES
     assert len(FILES) >= 56
 
