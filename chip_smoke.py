@@ -176,15 +176,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
      child of the transfer stage. Prints each stage's seconds and the
      tiling frames/s. The children's kernels run in their own
      processes and are not counted.
+ 22. JAX checkpoints (phase_jax_ckpt): the native library built from
+     the checkout's sources with g++ (`native.backend()` "cpp"); the
+     two committed Orbax directories of tests/fixtures/jax_ckpt (the
+     JAX package's custom trainer's full save and transfer trainer's
+     bare save, written by tests/jax_ckpt_fixtures.py) read by
+     train/jax_checkpoint.py, every leaf's SHA-256 equal to leaves.json,
+     the reader's seconds and MB/s by layer printed; the custom one
+     served on its tile through InferenceEngine (K1/K2 twice), the
+     transfer one (TransferConfig() in f32) on its tile through the
+     engine and on request (a)'s frame through make_frame_predictor (K5
+     twice each), the detections held against JAX's recorded outputs
+     (JAX_CKPT_TOL), and K1/K2 and K5 against their plain versions on
+     the inputs each request gave them; the custom one resumed by
+     train_custom --resume for one epoch on a 2/1/1-frame "sparse"
+     split: start epoch 3 (its meta epoch 2 + 1), the step count and
+     learning rate of optax's schedule continued, K1-K4 once a step, and
+     K1-K4 against their plain versions on the first resumed step's
+     inputs (cli_kernel_cases).
 
 Each phase prints its seconds. Prints the kernels' JSON line, then as
 the last line {"ok": true, "device": {...}}. Writes nothing outside the
 checkout but, under $TMPDIR, a temporary checkpoint, the split of
 phases 13-14, the splits and working directories of phases 15 and 16,
 each removed when its phase ends, the split of phase 17 and copies of
-the two trained checkpoints, removed when phase 17 ends, and phase
-21's working directory, removed when it ends; the kernels build into a
-directory inside the package.
+the two trained checkpoints, removed when phase 17 ends, and the
+working directories of phases 21 and 22, removed when each ends; the
+kernels and the native library build into a directory inside the
+package.
 """
 
 from __future__ import annotations
@@ -1939,27 +1958,29 @@ def run_cli(module, argv: list, root, wraps: dict, counters: dict):
     return out, {k: c.launches for k, c in counters.items()}
 
 
-def cli_kernel_cases(cra, cm, rec: dict) -> list:
+def cli_kernel_cases(cra, cm, rec: dict, label: str = "custom CLI"
+                     ) -> list:
     """K1-K4 against their plain versions on the inputs the custom CLI
-    gave them (`rec`: the recorders of phase_custom_cli): K1/K2, K3 and
-    K4 (full and max-only) on the first training step's, K1/K2 on both
-    RoIAlign passes of the first test batch (proposals, then the refined
-    detections)."""
+    gave them (`rec`: the recorders of phase_custom_cli or of the resumed
+    run of phase_jax_ckpt): K1/K2, K3 and K4 (full and max-only) on the
+    first training step's, K1/K2 on both RoIAlign passes of the first
+    test batch (proposals, then the refined detections) where the run
+    kept one."""
     cases = []
     passes = [("train", 0)] + [("test", i) for i in range(
-        len(rec["roi_weights"].calls["test"]))]
+        len(rec["roi_weights"].calls.get("test", [])))]
     for scope, i in passes:
         boxes, _, out, ratio, scale, _ = rec["roi_weights"].calls[scope][i]
         feat = rec["roi_align_fwd"].calls[scope][i][0]
         cases += k12_cases(cra, feat, boxes, out, ratio, scale,
-                           f"custom CLI {scope} pass {i + 1}")
+                           f"{label} {scope} pass {i + 1}")
     g, wy, wx, hw = rec["roi_align_bwd"].calls["train"][0]
-    cases.append(k3_check(cra, g, wy, wx, hw, "custom CLI train"))
+    cases.append(k3_check(cra, g, wy, wx, hw, f"{label} train"))
     anchors, gt, valid, _ = rec["match_anchors"].calls["train"][0]
     b, slots = valid.shape
     for full in (True, False):
         cases.append(k4_case(cm, anchors, gt, valid, full,
-                             f"custom CLI train B={b} I={slots}"))
+                             f"{label} train B={b} I={slots}"))
     for c in cases:
         log("[kernels]", json.dumps(c))
     return cases
@@ -4065,6 +4086,218 @@ def phase_runbook(root: Path, smi: str) -> dict:
     return res
 
 
+JAX_CKPT = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_ckpt"
+# Held against JAX's f32 forward on the CPU (tests/jax_ckpt_fixtures.py,
+# "highest" matmul precision) with cuDNN in f32 (TF32 off): the first
+# TOP_K detections by score, boxes in pixels, scores, mask-probability
+# sums relative (tests/test_torch_jax_fixtures.py holds the CPU port to
+# the same).
+JAX_CKPT_TOL = {"box_atol": 1e-2, "score_atol": 1e-4, "mask_rtol": 1e-3}
+JAX_CKPT_TOP_K = 20
+JAX_RESUME_FRAMES = (("train", 2), ("val", 1), ("test", 1))
+JAX_RESUME_CLI = ["--batch_size", "16", "--lr", "0.001", "--lr_step_size",
+                  "1", "--num_epochs", "3", "--fixed_heads",
+                  "--decode_proposals", "--mask_samples", "16"]
+
+
+def leaf_hashes(payload) -> dict:
+    """{leaf path: {shape, dtype, sha256}} of a loaded checkpoint's arrays,
+    as tests/jax_ckpt_fixtures.py:leaf_table lists them."""
+    import hashlib
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}/{k}" if path else k)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}")
+        elif isinstance(node, np.ndarray):
+            a = np.ascontiguousarray(node)
+            out[path] = {"shape": list(a.shape), "dtype": a.dtype.str,
+                         "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+
+    walk({k: v for k, v in payload.items() if k != "model_config"}, "")
+    return out
+
+
+def held_to_jax(label: str, boxes, scores, mask_sums, want: dict) -> dict:
+    """The first JAX_CKPT_TOP_K detections by score against JAX's
+    recorded ones (all of them, and as many, where JAX has fewer)."""
+    k = min(JAX_CKPT_TOP_K, len(want["scores"]))
+    got_o = np.argsort(-np.asarray(scores), kind="stable")[:k]
+    want_o = np.argsort(-np.asarray(want["scores"]), kind="stable")[:k]
+    errs = {
+        "box": float(np.abs(np.asarray(boxes)[got_o]
+                            - np.asarray(want["boxes"])[want_o]).max()),
+        "score": float(np.abs(np.asarray(scores)[got_o]
+                              - np.asarray(want["scores"])[want_o]).max()),
+        "mask_rel": float((np.abs(np.asarray(mask_sums)[got_o]
+                                  - np.asarray(want["mask_prob_sums"])[want_o])
+                           / np.abs(np.asarray(want["mask_prob_sums"])[want_o])
+                           ).max())}
+    res = dict(label=label, detections=len(scores),
+               jax_detections=len(want["scores"]), compared=k, err=errs,
+               tol=JAX_CKPT_TOL)
+    log("[jax ckpt]", json.dumps(res))
+    if not (len(scores) >= k and (len(want["scores"]) > JAX_CKPT_TOP_K
+                                  or len(scores) == len(want["scores"]))
+            and errs["box"] <= JAX_CKPT_TOL["box_atol"]
+            and errs["score"] <= JAX_CKPT_TOL["score_atol"]
+            and errs["mask_rel"] <= JAX_CKPT_TOL["mask_rtol"]):
+        raise AssertionError(f"jax ckpt {label}: {res}")
+    return res
+
+
+def phase_jax_ckpt(root: Path, frame: np.ndarray, smi: str) -> dict:
+    """22. The JAX package's checkpoints on the card (see the module's
+    doc): read, hashed, served and resumed."""
+    from livecell_tpu_torch import native
+    from livecell_tpu_torch.models import mask_rcnn
+    from livecell_tpu_torch.models.transfer import create_transfer_model
+    from livecell_tpu_torch.ops import cuda_match as cm
+    from livecell_tpu_torch.ops import cuda_ms_roi_align as cms
+    from livecell_tpu_torch.ops import cuda_roi_align as cra
+    from livecell_tpu_torch.parallel.train_step import scheduled_lr
+    from livecell_tpu_torch.serve.app import InferenceEngine
+    from livecell_tpu_torch.tools.bench_ckpt_read import read_stats
+    from livecell_tpu_torch.train import checkpoint, jax_checkpoint
+    from livecell_tpu_torch.train import train_custom
+
+    lib = native.library_path()
+    lib.unlink(missing_ok=True)
+    native.library.cache_clear()
+    t0 = time.perf_counter()
+    if native.backend() != "cpp" or not lib.exists():
+        raise AssertionError("jax ckpt: the native library did not build")
+    res = {"native_build_s": time.perf_counter() - t0}
+    tables = json.loads((JAX_CKPT / "leaves.json").read_text())
+    want = json.loads((JAX_CKPT / "outputs.json").read_text())
+    for name in ("custom", "transfer"):
+        got = leaf_hashes(jax_checkpoint.load(JAX_CKPT / name))
+        if got != tables[name]:
+            bad = sorted(k for k in set(got) | set(tables[name])
+                         if got.get(k) != tables[name].get(k))
+            raise AssertionError(f"jax ckpt {name}: leaves differ {bad[:5]}")
+        row = read_stats(JAX_CKPT / name, repeat=3)
+        res[f"read_{name}"] = row
+        log(f"[jax ckpt] {smi} | read {name}: {len(got)} leaves equal "
+            f"leaves.json;", json.dumps(row))
+
+    # The custom checkpoint served through the engine on its tile, K1/K2's
+    # inputs kept for their plain versions.
+    rec12 = {k: Recorder(getattr(cra, k), 2)
+             for k in ("roi_weights", "roi_align_fwd")}
+    eng = InferenceEngine(str(JAX_CKPT / "custom"))
+    tile = np.load(JAX_CKPT / "tile_custom.npy")
+    per_fwd = 2 if eng.model.cfg.decode_proposals else 1
+    with patched(cra, rec12):
+        served = scoped(check_served, rec12.values(), "tile")(
+            "jax custom checkpoint, its tile", eng, tile, rec12,
+            {k: per_fwd for k in rec12})
+    cases = recorded_k12_cases(cra, rec12, "tile", "jax ckpt custom tile")
+    del rec12
+    boxes, scores, _ = eng.predict(tile, 0.0)
+    with torch.inference_mode():
+        det = eng.model.inference_forward(torch.from_numpy(
+            tile[None].astype(np.float32) / 255.0).cuda())
+    v = det.valid[0]
+    sums = det.mask_probs[0][v].float().reshape(int(v.sum()), -1).sum(1)
+    res["custom"] = dict(served=served, **held_to_jax(
+        "custom tile", boxes, scores, sums.cpu().numpy(), want["custom"]))
+    del eng, det
+    torch.cuda.empty_cache()
+
+    # The transfer checkpoint (no sidecar: TransferConfig(), f32).
+    kind, cfg, sd = checkpoint.load_model_state(
+        str(JAX_CKPT / "transfer"), model_type="transfer")
+    model = create_transfer_model(dataclasses.replace(
+        cfg, compute_dtype="float32"))
+    model.load_state_dict(sd, strict=True)
+    rec5 = Recorder(cms.ms_roi_align_fwd, 2)
+    k5 = {"ms_roi_align_fwd": rec5, "ms_roi_align_bwd": cms.ms_roi_align_bwd}
+    eng = InferenceEngine(model=model, model_type="transfer")
+    tile = np.load(JAX_CKPT / "tile_transfer.npy")
+    with patched(cms, {"ms_roi_align_fwd": rec5}):
+        served = scoped(check_served, [rec5], "tile")(
+            "jax transfer checkpoint, its tile", eng, tile, k5,
+            {"ms_roi_align_fwd": 2, "ms_roi_align_bwd": 0})
+        framed = scoped(check_served, [rec5], "frame")(
+            "jax transfer checkpoint, request (a)'s frame", eng, frame, k5,
+            {"ms_roi_align_fwd": 2, "ms_roi_align_bwd": 0})
+    # K5 on both passes of each request (the proposals', then the
+    # detections').
+    ms_cases = []
+    for scope, calls in rec5.calls.items():
+        for feats, boxes, _, out_size, _ in calls:
+            ms_cases += ms_roi_cases(cms, list(feats), boxes, out_size,
+                                     f"jax ckpt transfer {scope}",
+                                     backward=False)
+    for c in ms_cases:
+        log("[kernels]", json.dumps(c))
+    cases += ms_cases
+    del rec5
+    boxes, scores, _ = eng.predict(tile, 0.0)
+    with torch.inference_mode():
+        det = model.inference_forward(torch.from_numpy(
+            tile[None].astype(np.float32) / 255.0).cuda())
+    v = det.valid[0]
+    sums = det.mask_probs[0][v].float().reshape(int(v.sum()), -1).sum(1)
+    res["transfer"] = dict(served=served, frame=framed, **held_to_jax(
+        "transfer tile", boxes, scores, sums.cpu().numpy(),
+        want["transfer"]))
+    del eng, model, det, sd
+    torch.cuda.empty_cache()
+
+    # The custom checkpoint resumed by the trainer CLI for one epoch.
+    split = root / "split"
+    draw_split(split, SEED + 22, "sparse", JAX_RESUME_FRAMES)
+    ckpt = root / "jax_custom.ckpt"
+    shutil.copytree(JAX_CKPT / "custom", ckpt)
+    counters = train_counters()
+    # Each kernel's inputs from the first resumed step.
+    rec = {k: Recorder(fn, 1) for k, fn in counters.items()}
+    train_l = {}
+    with patched(cra, {k: rec[k] for k in
+                       ("roi_weights", "roi_align_fwd", "roi_align_bwd")}), \
+            patched(mask_rcnn, {"match_anchors": rec["match_anchors"]}):
+        out, total = run_cli(
+            train_custom, ["--data_dir", str(split), "--resume", str(ckpt)]
+            + JAX_RESUME_CLI, root,
+            {"train_epoch": scoped(counted(
+                train_custom.train_epoch, counters, train_l),
+                list(rec.values()), "train")}, counters)
+    spe = out["steps_per_epoch"]
+    group = out["optimizer"].param_groups[0]
+    # optax's schedule of the flags (train_custom.py:build_optimizer):
+    # 1e-3 * 0.1 ** ((count // steps_per_epoch) // lr_step_size); the
+    # checkpoint's count is 2, the last update of the epoch had 1 + spe.
+    lr_first = 1e-3 * 0.1 ** ((2 // spe) // 1)
+    lr_want = 1e-3 * 0.1 ** (((1 + spe) // spe) // 1)
+    meta = json.loads((root / out["model_path"] / "meta.json").read_text())
+    res["resume"] = dict(
+        steps_per_epoch=spe, epochs=len(out["epoch_seconds"]),
+        saved_epoch=meta["epoch"], schedule_step=group["schedule_step"],
+        first_lr=scheduled_lr(dict(group, schedule_step=2)),
+        first_lr_want=lr_first, last_lr=group["lr"], lr_want=lr_want,
+        train_losses=out["train_losses"], launches=total,
+        launches_per_step={k: n / spe for k, n in train_l.items()},
+        epoch_s=out["epoch_seconds"])
+    log("[jax ckpt] resume:", json.dumps(res["resume"]))
+    if not (len(out["epoch_seconds"]) == 1 and meta["epoch"] == 3
+            and group["schedule_step"] == 2 + spe
+            and abs(group["lr"] - lr_want) <= 1e-7 * lr_want
+            and abs(res["resume"]["first_lr"] - lr_first) <= 1e-7 * lr_first
+            and np.isfinite(out["train_losses"]).all()
+            and train_l == {k: spe for k in counters}):
+        raise AssertionError(f"jax ckpt resume: {res['resume']}")
+    del out
+    torch.cuda.empty_cache()
+    res["cases"] = cases + cli_kernel_cases(cra, cm, rec, "jax ckpt resume")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4243,6 +4476,12 @@ def main() -> int:
         with Phase(21, "runbook"):
             runbook_res = phase_runbook(Path(tmp), smi)
 
+    # 22. the JAX package's checkpoints: read, served, resumed.
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase(22, "jax ckpt"):
+            jax_res = phase_jax_ckpt(Path(tmp), frame, smi)
+    cases += jax_res["cases"]
+
     # The kernels' line: every kernel's headline case at its training
     # step's shape (K1-K3: B = 32, K = 128 bf16; K4: T2's full form; K5,
     # K6: T3's B = 4, K = 512 at 7x7, bf16), `launches` from the timed
@@ -4313,6 +4552,17 @@ def main() -> int:
                 n = w[f"launches_per_{tool}_batch"].get(kname)
                 if n:
                     per_path[f"runbook {name} {tool} batch"] = n
+        for label, r in (("jax ckpt custom tile",
+                          jax_res["custom"]["served"]),
+                         ("jax ckpt transfer tile",
+                          jax_res["transfer"]["served"]),
+                         ("jax ckpt transfer frame",
+                          jax_res["transfer"]["frame"])):
+            if r["launches"].get(kname):
+                per_path[label] = r["launches"][kname]
+        if kname in jax_res["resume"]["launches_per_step"]:
+            per_path["jax ckpt resume per step"] = jax_res["resume"][
+                "launches_per_step"][kname]
         path = "T3" if kname.startswith("ms_") else "T2"
         kernels.append(dict(
             name=kname, route="cuda",

@@ -1,14 +1,16 @@
-"""Host-side data-path routines in C++ (ctypes bindings): the polygon
-rasterizer, the COCO RLE codec and the TIFF LZW decoder of
-`rasterize.cc`.
+"""Host-side routines in C++ (ctypes bindings): the polygon rasterizer,
+the COCO RLE codec and the TIFF LZW decoder of `rasterize.cc`, and the
+zstd decoder and CRC-32C of `zstd.cc` (the checkpoint reader's).
 
-The library is built with g++ at first use, not when this module is
-imported, into `livecell_tpu_torch/build/librasterize-<hash>.so` (the
-hash covers the source and the flags). It is compiled to a temporary
+The library is built from both sources with g++ at first use, not when
+this module is imported, into
+`livecell_tpu_torch/build/librasterize-<hash>.so` (the hash covers every
+source and the flags). It is compiled to a temporary
 name and renamed into place, so processes that build at once never load
 a half-written file. Without a compiler, or if the build fails,
-`library()` is None and data/coco.py and data/tiff.py take their
-numpy and Python routines instead; `backend()` says which path serves.
+`library()` is None and data/coco.py, data/tiff.py and utils/zstd.py
+take their numpy and Python routines instead; `backend()` says which
+path serves.
 """
 
 from __future__ import annotations
@@ -23,14 +25,17 @@ from typing import Optional
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parent / "rasterize.cc"
-BUILD = SRC.parent.parent / "build"
+HERE = Path(__file__).resolve().parent
+SOURCES = [HERE / "rasterize.cc", HERE / "zstd.cc"]
+BUILD = HERE.parent / "build"
 FLAGS = ["-O3", "-shared", "-fPIC"]
 
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    h.update(SRC.read_bytes())
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     return BUILD / f"librasterize-{h.hexdigest()[:16]}.so"
 
 
@@ -38,7 +43,7 @@ def _build(path: Path) -> bool:
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
     try:
-        subprocess.run(["g++", *FLAGS, str(SRC), "-o", str(tmp)],
+        subprocess.run(["g++", *FLAGS, *map(str, SOURCES), "-o", str(tmp)],
                        check=True, capture_output=True, timeout=120)
     except (OSError, subprocess.SubprocessError):
         tmp.unlink(missing_ok=True)
@@ -70,6 +75,16 @@ def library() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
     lib.lzw_decode.restype = ctypes.c_int64
+    lib.zstd_decompress.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_char_p,
+        ctypes.c_int64]
+    lib.zstd_decompress.restype = ctypes.c_int64
+    lib.zstd_content_size.argtypes = [ctypes.POINTER(ctypes.c_uint8),
+                                      ctypes.c_int64]
+    lib.zstd_content_size.restype = ctypes.c_int64
+    lib.crc32c.argtypes = [ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
+    lib.crc32c.restype = ctypes.c_uint32
     return lib
 
 
@@ -122,3 +137,39 @@ def lzw_decode(data: bytes, size: int) -> bytes:
     if n < 0:
         raise ValueError("TIFF LZW code that is not in its table")
     return out[:n].tobytes()
+
+
+def zstd_decompress(data) -> bytes:
+    """The content of the concatenated zstd frames in `data`
+    (utils/zstd.py:decompress_plain's result); raises
+    utils.zstd.ZstdError on a truncated, corrupt or unsupported input.
+    The output is sized from the frames' content sizes, or, where a
+    frame does not record its size, grown until it fits."""
+    from livecell_tpu_torch.utils.zstd import ZstdError
+
+    src = np.frombuffer(data, np.uint8)
+    lib = library()
+    cap = lib.zstd_content_size(_ptr(src, ctypes.c_uint8), len(src))
+    exact = cap >= 0
+    if not exact:
+        cap = max(1 << 20, 4 * len(src))
+    err = ctypes.create_string_buffer(256)
+    while True:
+        out = np.empty(max(cap, 1), np.uint8)
+        n = lib.zstd_decompress(_ptr(src, ctypes.c_uint8), len(src),
+                                _ptr(out, ctypes.c_uint8), cap, err, 256)
+        if n >= 0:
+            return out[:n].tobytes()
+        if n == -2 and not exact:
+            cap *= 4
+            continue
+        if n == -2:
+            raise ZstdError("zstd: frame content size does not match its "
+                            "blocks")
+        raise ZstdError(err.value.decode())
+
+
+def crc32c(data) -> int:
+    """CRC-32C (Castagnoli) of `data`."""
+    src = np.frombuffer(data, np.uint8)
+    return int(library().crc32c(_ptr(src, ctypes.c_uint8), len(src)))

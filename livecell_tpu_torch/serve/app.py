@@ -49,11 +49,14 @@ def save_model(model: nn.Module, path: str) -> None:
     checkpoint.save(path, model)
 
 
-def load_model(path: str, device=None) -> nn.Module:
-    """Load a port checkpoint directory onto `device` (the card unless
-    the caller passes "cpu") as the serving model of the type it
-    records."""
-    kind, cfg, sd = checkpoint.load_model_state(path, device)
+def load_model(path: str, device=None,
+               model_type: Optional[str] = None) -> nn.Module:
+    """Load a checkpoint directory, the port's or the JAX package's, onto
+    `device` (the card unless the caller passes "cpu") as the serving
+    model of the type it records. `model_type` types a JAX checkpoint
+    that records none (the transfer trainer's) and must agree with one
+    that does (train/checkpoint.py:load_model_state)."""
+    kind, cfg, sd = checkpoint.load_model_state(path, device, model_type)
     build = create_model if kind == "custom" else create_transfer_model
     model = build(cfg, device=device)
     model.load_state_dict(sd, strict=True)
@@ -79,7 +82,7 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.model_path = model_path
         if model is None:
-            model = load_model(model_path, self.device)
+            model = load_model(model_path, self.device, model_type)
         kind = type_of(model.cfg)
         if model_type is not None and model_type != kind:
             raise ValueError(f"model_type {model_type!r}, but the model is "

@@ -45,8 +45,9 @@ from livecell_tpu_torch.serve.stitch import (
 
 def load_model(model_path: str, model_type: str = "custom", mcfg=None,
                device=None):
-    """Load a port checkpoint directory (serve/app.py:load_model) onto
-    `device` (the card unless the caller passes "cpu").
+    """Load a checkpoint directory, the port's or the JAX package's
+    (serve/app.py:load_model), onto `device` (the card unless the caller
+    passes "cpu").
 
     The checkpoint's stored config is the base. Fields the caller's
     `mcfg` explicitly changed from ModelConfig()'s defaults (the dense
@@ -56,7 +57,7 @@ def load_model(model_path: str, model_type: str = "custom", mcfg=None,
     if model_type not in ("custom", "transfer"):
         raise ValueError(f"Unknown model_type: {model_type}")
     print(f"Loading {model_type} model from {model_path}...")
-    model = app.load_model(model_path, device)
+    model = app.load_model(model_path, device, model_type)
     kind = type_of(model.cfg)
     if kind != model_type:
         raise ValueError(f"model_type {model_type!r}, but {model_path} "

@@ -10,7 +10,8 @@ be swept on one trained model in seconds instead of a new training run.
         --fixed_heads --decode_proposals --dets 256 --infer_nms 0.7 \\
         --det_nms 0.5
 
-The checkpoint is a train/checkpoint.py directory of the custom model.
+The checkpoint is a directory of the custom model: the port's
+(train/checkpoint.py) or the JAX package's (Orbax; train/jax_checkpoint.py).
 Its sidecar's ModelConfig is the model (JAX route names map through
 config.JAX_ROUTES); without a sidecar, Config().model with
 --fixed_heads/--decode_proposals/--frozen_bn. A transfer checkpoint is
@@ -23,33 +24,28 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-from pathlib import Path
 
-import torch
-
-from livecell_tpu_torch.config import (
-    Config, apply_dense_flags, config_from_dict)
+from livecell_tpu_torch.config import Config, apply_dense_flags
 from livecell_tpu_torch.data.dataset import get_datasets, instance_slots
 from livecell_tpu_torch.device import resolve_device
 from livecell_tpu_torch.models.mask_rcnn import create_model
 from livecell_tpu_torch.parallel.train_step import make_eval_step
+from livecell_tpu_torch.train import checkpoint
 from livecell_tpu_torch.train import metrics as metrics_lib
 from livecell_tpu_torch.train.coco_eval import evaluate_coco_multi
 
 
 def load_custom_model(path: str, fallback, device):
     """(ModelConfig, state dict on `device`) of a custom checkpoint
-    directory: the sidecar's config, else `fallback`. A checkpoint of
-    another model type exits with a message."""
-    sidecar = Path(path) / "model_config.json"
-    mcfg = fallback
-    if sidecar.exists():
-        kind, mcfg = config_from_dict(json.loads(sidecar.read_text()))
-        if kind != "custom":
-            raise SystemExit(f"{path} holds a {kind} model; the quality "
-                             f"tools evaluate the custom model only")
-    sd = torch.load(Path(path) / "model.pt", map_location=device,
-                    weights_only=True)
+    directory, the port's or the JAX package's, through
+    train/checkpoint.py:load_model_state: the sidecar's config, else
+    `fallback`. A checkpoint of another model type exits with a
+    message."""
+    kind, mcfg, sd = checkpoint.load_model_state(path, device,
+                                                 fallback=fallback)
+    if kind != "custom":
+        raise SystemExit(f"{path} holds a {kind} model; the quality "
+                         f"tools evaluate the custom model only")
     return mcfg, sd
 
 

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of livecell_tpu_torch/ and
 not chip_smoke.py, cli_seed_spread.py, train_step_ab.py or
-quality_run.py imports JAX, its libraries, the JAX package or the test
-helpers under tests/, and none imports PIL, matplotlib, gradio,
+quality_run.py imports JAX, its libraries (Orbax's tensorstore, zarr,
+numcodecs and zstandard among them: the port reads JAX's checkpoints
+with its own code), the JAX package or the test helpers under tests/, and none imports PIL, matplotlib, gradio,
 requests or tqdm when it is imported (the card's machine has none of
 them; the drawing and serving ones are imported inside the functions
 that draw or serve, and the downloader takes urllib)."""
@@ -15,7 +16,8 @@ ROOT = Path(__file__).resolve().parent.parent
 # The port and its scripts import nothing of the tests either: they keep
 # their own copy of what they need.
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex",
-             "livecell_tpu", "tests")
+             "livecell_tpu", "tests", "tensorstore", "zarr", "numcodecs",
+             "zstandard")
 # Not on the card's machine: imported only inside functions.
 NOT_ON_CARD = ("PIL", "matplotlib", "gradio", "requests", "tqdm")
 FILES = sorted(str(p.relative_to(ROOT))
@@ -60,9 +62,11 @@ def test_scan_covers_the_package():
                 "tools/check_torch_import.py", "tools/bench_conv1.py",
                 "tools/bench_roi_blocks.py", "tools/bench_nms.py",
                 "tools/steps.py", "tools/run_real_livecell.py",
-                "data/tiff.py"):
+                "data/tiff.py", "utils/zstd.py", "utils/ocdbt.py",
+                "utils/zarr_v2.py", "train/jax_checkpoint.py",
+                "tools/bench_ckpt_read.py"):
         assert "livecell_tpu_torch/" + rel in FILES
-    assert len(FILES) >= 56
+    assert len(FILES) >= 61
 
 
 @pytest.mark.parametrize("rel", FILES)
