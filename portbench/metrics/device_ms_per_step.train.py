@@ -1,0 +1,8 @@
+"""Milliseconds a step in which the card ran a kernel, memcpy or memset
+(the union of their intervals in the traced steps)."""
+
+from portbench.readers import device_ms
+
+
+def read(ctx):
+    return device_ms(ctx, "step")
