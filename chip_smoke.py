@@ -2718,9 +2718,8 @@ def phase_mesh_flops(cfg, tcfg, frame: np.ndarray, smi: str) -> dict:
                 break
         else:
             raise AssertionError(f"trace of a T1 step misses kernels: {found}")
-    stats = profiling.device_memory_stats()
     log(f"[mesh memory] peak allocated "
-        f"{stats.get('allocated_bytes.all.peak', 0):.0f} MiB")
+        f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
     del pool, tpool
     torch.cuda.empty_cache()
     return rows

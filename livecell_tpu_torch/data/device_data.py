@@ -16,7 +16,8 @@ the same rows.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import time
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +26,7 @@ from livecell_tpu_torch.device import resolve_device
 from livecell_tpu_torch.models.detector import Detections
 from livecell_tpu_torch.parallel.train_step import (
     make_eval_step, make_step_fn, normalize_batch)
+from livecell_tpu_torch.utils.profiling import span
 
 
 class DeviceDataset:
@@ -90,12 +92,20 @@ def local_indices(idx_mat, mesh=None) -> np.ndarray:
 
 
 def train_epoch(model, opt, pool: DeviceDataset, idx_mat,
-                generator=None, mesh=None) -> Dict[str, np.ndarray]:
+                generator=None, mesh=None,
+                stats: Optional[Dict[str, float]] = None
+                ) -> Dict[str, np.ndarray]:
     """One epoch of `make_step_fn(model, opt, mesh)` steps over the
     batches idx_mat [S, B] of `pool` (with a mesh, global batches of
     which this rank takes its rows), the sampling uniforms drawn from
     `generator`. Each step's metrics stay on the card; the epoch fetches
-    them once: {name: [S] float array}."""
+    them once: {name: [S] float array}.
+
+    `stats`, when given, accumulates "steps", "enqueue_s" (host seconds
+    from the epoch's start until its last step is enqueued) and
+    "wait_s" (host seconds blocked in the metric fetch, which waits for
+    the card): whether the host or the card sets the pace."""
+    t0 = time.perf_counter()
     step = make_step_fn(model, opt, mesh)
     idx = torch.as_tensor(local_indices(idx_mat, mesh),
                           dtype=torch.long).to(pool.images.device)
@@ -103,15 +113,22 @@ def train_epoch(model, opt, pool: DeviceDataset, idx_mat,
     for i in range(idx.shape[0]):
         images, targets = pool.batch(idx[i])
         rows.append(step(images, targets, generator=generator))
-    return fetch_metrics(rows)
+    t1 = time.perf_counter()
+    out = fetch_metrics(rows)
+    if stats is not None:
+        for k, v in (("steps", len(rows)), ("enqueue_s", t1 - t0),
+                     ("wait_s", time.perf_counter() - t1)):
+            stats[k] = stats.get(k, 0) + v
+    return out
 
 
 def fetch_metrics(rows) -> Dict[str, np.ndarray]:
     """Steps' metric dicts of device scalars -> {name: [S] float array},
-    in one copy from the device."""
-    names = list(rows[0])
-    table = torch.stack([torch.stack([r[k].float() for k in names])
-                         for r in rows]).cpu().numpy()
+    in one copy from the device (the span livecell.fetch_metrics)."""
+    with span("livecell.fetch_metrics"):
+        names = list(rows[0])
+        table = torch.stack([torch.stack([r[k].float() for k in names])
+                             for r in rows]).cpu().numpy()
     return {k: table[:, j] for j, k in enumerate(names)}
 
 

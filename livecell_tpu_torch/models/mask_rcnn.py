@@ -38,6 +38,7 @@ from livecell_tpu_torch.ops.cuda_roi_align import roi_align
 from livecell_tpu_torch.ops.nms import nms_fixed
 from livecell_tpu_torch.ops.proposals import (
     inference_proposals, take_rows, top_k_stable, training_proposals)
+from livecell_tpu_torch.utils.profiling import span
 
 
 class CustomMaskRCNN(nn.Module):
@@ -179,76 +180,84 @@ class CustomMaskRCNN(nn.Module):
                 return per_image.mean()
             return per_image.sum() / n_images
         img_size = (c.image_height, c.image_width)
-        feat0 = self.extract_features(images, levels=1)[0]
-        cls_scores, bbox_deltas = self.rpn([feat0.permute(0, 3, 1, 2)])
-        obj = cls_scores[0].reshape(b, -1).float()              # [B, N]
-        rpn_dlt = bbox_deltas[0].reshape(b, -1, 4)              # [B, N, 4]
-        anchors = self.anchors(images.device)
-        gt_boxes = targets["boxes"].float()
-        gt_valid = targets["valid"].bool()
-        mask28 = targets["mask28"].float()
-        # Quirk mode (the reference's semantics): the RPN loss reads image
-        # 0's scores against the GT of the whole batch concatenated, the
-        # heads train on image 0. Fixed mode: every image does both.
-        s = slice(None) if c.heads_all_images else slice(0, 1)
-        if c.heads_all_images:
-            rpn_gt, rpn_valid = gt_boxes, gt_valid
-        else:
-            all_gt = (gt_boxes, gt_valid, mask28)
-            if axis is not None:
-                all_gt = tuple(axis.gather(x) for x in all_gt)
-            rpn_gt, rpn_valid = all_gt[0].reshape(1, -1, 4), \
-                all_gt[1].reshape(1, -1)
-        full = c.decode_proposals and c.heads_all_images
-        match = self._match_anchors(rpn_gt, rpn_valid, full=full)
-        max_iou = match[0] if full else match
-        loss_rpn = rpn_loss_single(obj[s], rpn_valid, max_iou,
-                                   noise["rpn_pos"], noise["rpn_neg"], c)
-        props = training_proposals(
-            obj[s], anchors, img_size, noise["proposals"], c.train_pre_topk,
-            c.train_score_thresh, c.train_min_box_size, c.train_num_samples,
-            deltas=rpn_dlt[s] if c.decode_proposals else None)
+        with span("livecell.features"):
+            feat0 = self.extract_features(images, levels=1)[0]
+        with span("livecell.rpn"):
+            cls_scores, bbox_deltas = self.rpn([feat0.permute(0, 3, 1, 2)])
+            obj = cls_scores[0].reshape(b, -1).float()          # [B, N]
+            rpn_dlt = bbox_deltas[0].reshape(b, -1, 4)          # [B, N, 4]
+            anchors = self.anchors(images.device)
+            gt_boxes = targets["boxes"].float()
+            gt_valid = targets["valid"].bool()
+            mask28 = targets["mask28"].float()
+            # Quirk mode (the reference's semantics): the RPN loss reads
+            # image 0's scores against the GT of the whole batch
+            # concatenated, the heads train on image 0. Fixed mode: every
+            # image does both.
+            s = slice(None) if c.heads_all_images else slice(0, 1)
+            if c.heads_all_images:
+                rpn_gt, rpn_valid = gt_boxes, gt_valid
+            else:
+                all_gt = (gt_boxes, gt_valid, mask28)
+                if axis is not None:
+                    all_gt = tuple(axis.gather(x) for x in all_gt)
+                rpn_gt, rpn_valid = all_gt[0].reshape(1, -1, 4), \
+                    all_gt[1].reshape(1, -1)
+            full = c.decode_proposals and c.heads_all_images
+            match = self._match_anchors(rpn_gt, rpn_valid, full=full)
+            max_iou = match[0] if full else match
+            loss_rpn = rpn_loss_single(obj[s], rpn_valid, max_iou,
+                                       noise["rpn_pos"], noise["rpn_neg"], c)
+        with span("livecell.proposals"):
+            props = training_proposals(
+                obj[s], anchors, img_size, noise["proposals"],
+                c.train_pre_topk, c.train_score_thresh,
+                c.train_min_box_size, c.train_num_samples,
+                deltas=rpn_dlt[s] if c.decode_proposals else None)
+            mask_gt = None
+            if not c.heads_all_images and n_images > 1:
+                # Reference quirk: mask targets are re-matched against
+                # the whole batch's GT (mask_utils.py:88-108).
+                mask_gt = (rpn_gt, rpn_valid,
+                           all_gt[2].reshape((1, -1) + mask28.shape[2:]))
+            t = match_head_targets(props.boxes, props.valid, gt_boxes[s],
+                                   gt_valid[s], mask28[s], c, mask_gt=mask_gt)
+        with span("livecell.heads"):
+            rois = self._roi_align(feat0[s], props.boxes)     # [b', K, ...]
+            flat_rois = rois.reshape((-1,) + rois.shape[2:])
+            cls_logits, box_deltas = self.box_head(flat_rois)
+            flat_t = HeadTargets(*(x.reshape((-1,) + x.shape[2:])
+                                   for x in t))
+            losses = box_losses(cls_logits, box_deltas, flat_t, count)
 
-        mask_gt = None
-        if not c.heads_all_images and n_images > 1:
-            # Reference quirk: mask targets are re-matched against the
-            # whole batch's GT (mask_utils.py:88-108).
-            mask_gt = (rpn_gt, rpn_valid,
-                       all_gt[2].reshape((1, -1) + mask28.shape[2:]))
-        t = match_head_targets(props.boxes, props.valid, gt_boxes[s],
-                               gt_valid[s], mask28[s], c, mask_gt=mask_gt)
-        rois = self._roi_align(feat0[s], props.boxes)         # [b', K, ...]
-        flat_rois = rois.reshape((-1,) + rois.shape[2:])
-        cls_logits, box_deltas = self.box_head(flat_rois)
-        flat_t = HeadTargets(*(x.reshape((-1,) + x.shape[2:]) for x in t))
-        losses = box_losses(cls_logits, box_deltas, flat_t, count)
-
-        m = c.mask_train_samples
-        order = None
-        if c.heads_all_images and 0 < m < c.train_num_samples:
-            # The mask head runs on the top m of each image's proposals,
-            # mask-fg first (stable: proposal order among equals). A row
-            # gather computes the JAX package's one-hot product exactly.
-            order = top_k_stable(t.mask_weight, m)[1]          # [B, m]
-            k = rois.shape[1]
-            mrois = take_rows(rois.reshape(b, k, -1), order)
-            mtargets = take_rows(t.mask_targets.reshape(b, k, -1), order)
-            mask_logits = self.mask_head(
-                mrois.reshape((-1,) + rois.shape[2:]))
-            losses["loss_mask"] = mask_loss_on(
-                mask_logits, mtargets.reshape((-1,) + mask28.shape[2:]),
-                torch.gather(t.mask_weight, 1, order).reshape(-1), count)
-        else:
-            losses["loss_mask"] = mask_loss(self.mask_head(flat_rois), flat_t,
-                                            count)
-        losses["loss_rpn_cls"] = batch_mean(loss_rpn)
-        if c.decode_proposals:
-            # Quirk mode regresses image 0's deltas on image 0's GT: a
-            # second, full match.
-            reg_match = match if full else self._match_anchors(
-                gt_boxes[s], gt_valid[s])
-            losses["loss_rpn_reg"] = batch_mean(rpn_reg_loss_from_match(
-                rpn_dlt[s], *reg_match, gt_valid[s], c))
+            m = c.mask_train_samples
+            order = None
+            if c.heads_all_images and 0 < m < c.train_num_samples:
+                # The mask head runs on the top m of each image's
+                # proposals, mask-fg first (stable: proposal order among
+                # equals). A row gather computes the JAX package's
+                # one-hot product exactly.
+                order = top_k_stable(t.mask_weight, m)[1]      # [B, m]
+                k = rois.shape[1]
+                mrois = take_rows(rois.reshape(b, k, -1), order)
+                mtargets = take_rows(t.mask_targets.reshape(b, k, -1), order)
+                mask_logits = self.mask_head(
+                    mrois.reshape((-1,) + rois.shape[2:]))
+                losses["loss_mask"] = mask_loss_on(
+                    mask_logits, mtargets.reshape((-1,) + mask28.shape[2:]),
+                    torch.gather(t.mask_weight, 1, order).reshape(-1), count)
+            else:
+                losses["loss_mask"] = mask_loss(self.mask_head(flat_rois),
+                                                flat_t, count)
+        with span("livecell.rpn"):
+            losses["loss_rpn_cls"] = batch_mean(loss_rpn)
+            if c.decode_proposals:
+                # Quirk mode regresses image 0's deltas on image 0's GT:
+                # a second, full match.
+                reg_match = match if full else self._match_anchors(
+                    gt_boxes[s], gt_valid[s])
+                losses["loss_rpn_reg"] = batch_mean(rpn_reg_loss_from_match(
+                    rpn_dlt[s], *reg_match, gt_valid[s], c))
         if record is not None:
             pos, neg, _ = rpn_sample(max_iou, noise["rpn_pos"],
                                      noise["rpn_neg"], c)
@@ -270,58 +279,63 @@ class CustomMaskRCNN(nn.Module):
         c = self.cfg
         b = images.shape[0]
         img_size = (c.image_height, c.image_width)
-        feats = self.extract_features(images, levels=1)
-        feat0 = feats[0]
-        cls_scores, bbox_deltas = self.rpn([feat0.permute(0, 3, 1, 2)])
-        obj = cls_scores[0].reshape(b, -1).float()
-        rpn_dlt = bbox_deltas[0].reshape(b, -1, 4)
+        with span("livecell.features"):
+            feat0 = self.extract_features(images, levels=1)[0]
+        with span("livecell.rpn"):
+            cls_scores, bbox_deltas = self.rpn([feat0.permute(0, 3, 1, 2)])
+            obj = cls_scores[0].reshape(b, -1).float()
+            rpn_dlt = bbox_deltas[0].reshape(b, -1, 4)
+        with span("livecell.proposals"):
+            props = inference_proposals(
+                obj, self.anchors(images.device), img_size,
+                c.infer_pre_topk, c.infer_score_thresh, c.infer_nms_thresh,
+                c.infer_post_nms, c.infer_min_box_size,
+                deltas=rpn_dlt if c.decode_proposals else None)
+        with span("livecell.heads"):
+            rois = self._roi_align(feat0, props.boxes)
+            flat_rois = rois.reshape((-1,) + rois.shape[2:])
+            cls_logits, head_deltas = self.box_head(flat_rois)
+            d = c.infer_post_nms
+            box_scores = torch.softmax(cls_logits.reshape(b, d, -1),
+                                       dim=-1)[..., 1]
+            boxes = props.boxes
+            if c.decode_proposals:
+                # Refine with the box head's class-1 deltas, undoing the
+                # box-coder weights the targets were scaled by.
+                w = constant(tuple(c.box_reg_weights), boxes.device)
+                boxes = clip_boxes(decode_boxes(
+                    head_deltas.reshape(b, d, -1)[..., 4:8] / w, boxes),
+                    img_size)
+            keep = (box_scores > c.det_score_thresh) & props.valid
+            det_idx, det_valid = nms_fixed(boxes, box_scores,
+                                           c.det_nms_thresh,
+                                           c.max_detections, valid=keep)
+            det_boxes = take_rows(boxes, det_idx)
+            det_scores = torch.gather(box_scores, 1, det_idx)
 
-        props = inference_proposals(
-            obj, self.anchors(images.device), img_size, c.infer_pre_topk,
-            c.infer_score_thresh, c.infer_nms_thresh, c.infer_post_nms,
-            c.infer_min_box_size,
-            deltas=rpn_dlt if c.decode_proposals else None)
-        rois = self._roi_align(feat0, props.boxes)
-        flat_rois = rois.reshape((-1,) + rois.shape[2:])
-        cls_logits, head_deltas = self.box_head(flat_rois)
-        d = c.infer_post_nms
-        box_scores = torch.softmax(cls_logits.reshape(b, d, -1),
-                                   dim=-1)[..., 1]
-        boxes = props.boxes
-        if c.decode_proposals:
-            # Refine with the box head's class-1 deltas, undoing the
-            # box-coder weights the targets were scaled by.
-            w = constant(tuple(c.box_reg_weights), boxes.device)
-            boxes = clip_boxes(decode_boxes(
-                head_deltas.reshape(b, d, -1)[..., 4:8] / w, boxes), img_size)
-        keep = (box_scores > c.det_score_thresh) & props.valid
-        det_idx, det_valid = nms_fixed(boxes, box_scores, c.det_nms_thresh,
-                                       c.max_detections, valid=keep)
-        det_boxes = take_rows(boxes, det_idx)
-        det_scores = torch.gather(box_scores, 1, det_idx)
+            m = c.mask_size
+            if c.decode_proposals:
+                # Second mask pass at the final (refined) boxes, so masks
+                # are predicted and pasted in the same frame.
+                mrois = self._roi_align(feat0, det_boxes)
+                mask_logits = self.mask_head(
+                    mrois.reshape((-1,) + mrois.shape[2:]))
+                mask_probs = torch.sigmoid(
+                    mask_logits[..., 1].reshape(b, c.max_detections, m, m))
+            else:
+                # Reference behaviour: mask logits of the proposal ROIs,
+                # gathered through the detection NMS.
+                mask_logits = self.mask_head(flat_rois)
+                probs_all = torch.sigmoid(
+                    mask_logits[..., 1].reshape(b, d, m, m))
+                rows = torch.arange(b, device=images.device)[:, None]
+                mask_probs = probs_all[rows, det_idx]
 
-        m = c.mask_size
-        if c.decode_proposals:
-            # Second mask pass at the final (refined) boxes, so masks
-            # are predicted and pasted in the same frame.
-            mrois = self._roi_align(feat0, det_boxes)
-            mask_logits = self.mask_head(
-                mrois.reshape((-1,) + mrois.shape[2:]))
-            mask_probs = torch.sigmoid(
-                mask_logits[..., 1].reshape(b, c.max_detections, m, m))
-        else:
-            # Reference behaviour: mask logits of the proposal ROIs,
-            # gathered through the detection NMS.
-            mask_logits = self.mask_head(flat_rois)
-            probs_all = torch.sigmoid(mask_logits[..., 1].reshape(b, d, m, m))
-            rows = torch.arange(b, device=images.device)[:, None]
-            mask_probs = probs_all[rows, det_idx]
-
-        return Detections(
-            boxes=det_boxes, scores=det_scores,
-            labels=torch.ones((b, c.max_detections), dtype=torch.int32,
-                              device=images.device),
-            valid=det_valid, mask_probs=mask_probs)
+            return Detections(
+                boxes=det_boxes, scores=det_scores,
+                labels=torch.ones((b, c.max_detections), dtype=torch.int32,
+                                  device=images.device),
+                valid=det_valid, mask_probs=mask_probs)
 
     def forward(self, images: torch.Tensor) -> Detections:
         return self.inference_forward(images)

@@ -47,6 +47,7 @@ from livecell_tpu_torch.ops.mask_ops import reproject_mask28, resize_bilinear
 from livecell_tpu_torch.ops.nms import nms_fixed, nms_iterated
 from livecell_tpu_torch.ops.proposals import (
     sample_rows, take_rows, top_k_stable)
+from livecell_tpu_torch.utils.profiling import span
 
 _MEAN = (0.485, 0.456, 0.406)
 _STD = (0.229, 0.224, 0.225)
@@ -422,78 +423,83 @@ class TransferMaskRCNN(nn.Module):
 
     def _train_forward(self, images, targets, noise, record):
         c = self.cfg
-        feats = self.features(images)
-        objs, dlts = self.rpn_outputs(feats)
-        anchors = self.anchors(images.device)
-        anchors_cat = torch.cat(anchors, 0)
-        sy, sx = self.scale
-        gt_boxes = targets["boxes"].float() * torch.tensor(
-            [sx, sy, sx, sy], dtype=torch.float32, device=images.device)
-        gt_valid = targets["valid"].bool()
-        gt_mask28 = targets["mask28"].float()
-        obj_cat = torch.cat(objs, 1)                       # [B, A]
-        dlt_cat = torch.cat(dlts, 1)                       # [B, A, 4]
+        with span("livecell.features"):
+            feats = self.features(images)
+        with span("livecell.rpn"):
+            objs, dlts = self.rpn_outputs(feats)
+            anchors = self.anchors(images.device)
+            anchors_cat = torch.cat(anchors, 0)
+            sy, sx = self.scale
+            gt_boxes = targets["boxes"].float() * torch.tensor(
+                [sx, sy, sx, sy], dtype=torch.float32, device=images.device)
+            gt_valid = targets["valid"].bool()
+            gt_mask28 = targets["mask28"].float()
+            obj_cat = torch.cat(objs, 1)                       # [B, A]
+            dlt_cat = torch.cat(dlts, 1)                       # [B, A, 4]
 
-        max_iou, tgt, best = self.match(anchors_cat, gt_boxes, gt_valid)
-        rows, rval, rlabels, fi, fv, rpn_reg_t = rpn_targets_from_match(
-            c, anchors_cat, max_iou, tgt, best, gt_boxes, gt_valid,
-            noise["rpn_fg"], noise["rpn_bg"])
-        obj_s = torch.gather(obj_cat, 1, rows)
-        rpn_reg_p = take_rows(dlt_cat, fi)
+            max_iou, tgt, best = self.match(anchors_cat, gt_boxes, gt_valid)
+            rows, rval, rlabels, fi, fv, rpn_reg_t = rpn_targets_from_match(
+                c, anchors_cat, max_iou, tgt, best, gt_boxes, gt_valid,
+                noise["rpn_fg"], noise["rpn_bg"])
+            obj_s = torch.gather(obj_cat, 1, rows)
+            rpn_reg_p = take_rows(dlt_cat, fi)
+        with span("livecell.proposals"):
+            # Proposals from detached scores (torchvision detaches them).
+            pboxes, pvalid = image_proposals(
+                c, [o.detach() for o in objs], [d.detach() for d in dlts],
+                anchors, self.img_hw)
+            sampled, sval, labels, matched_gt, reg_t, fgv = box_targets(
+                c, pboxes, pvalid, gt_boxes, gt_valid, noise["box_fg"],
+                noise["box_bg"])
+            ms = c.mask_slots
+            mb, mgt = sampled[:, :ms], matched_gt[:, :ms]
+            src = take_rows(
+                gt_mask28.reshape(gt_mask28.shape[:2] + (-1,)), mgt)
+            mtargets = reproject_mask28(
+                src.reshape(src.shape[:2] + gt_mask28.shape[2:]),
+                take_rows(gt_boxes, mgt), mb)
+            mvalid = fgv[:, :ms]
+            if record is not None:
+                record.update(rpn_rows=rows, rpn_valid=rval,
+                              proposals=pboxes, proposal_valid=pvalid,
+                              box_rows=sampled, box_valid=sval)
+        with span("livecell.heads"):
+            box_rois = self.ms_roi(feats, sampled, c.roi_size)
+            mrois = self.ms_roi(feats, mb, c.mask_roi_size)
+        with span("livecell.rpn"):
+            # RPN losses, normalized by the sampled count like torchvision.
+            count = local_count if self.data_axis is None \
+                else self.data_axis.count
+            rval_f = rval.float()
+            n_sampled = count(rval_f.sum()).clamp(min=1.0)
+            loss_obj = (bce_with_logits(obj_s, rlabels) * rval_f).sum() \
+                / n_sampled
+            reg = smooth_l1(rpn_reg_p.reshape(-1, 4),
+                            rpn_reg_t.reshape(-1, 4), beta=1.0 / 9).sum(-1)
+            loss_rpn_reg = (reg * fv.reshape(-1).float()).sum() / n_sampled
+        with span("livecell.heads"):
+            # Box head over all images' sampled ROIs.
+            h = self.box_head(box_rois.reshape((-1,) + box_rois.shape[2:]))
+            cls_logits, box_deltas = self.box_predictor(h)
+            flat_labels = labels.reshape(-1)
+            flat_sval = sval.reshape(-1).float()
+            n_box = count(flat_sval.sum()).clamp(min=1.0)
+            logp = F.log_softmax(cls_logits, dim=-1)
+            ce = -torch.gather(logp, 1, flat_labels[:, None])[:, 0]
+            loss_cls = (ce * flat_sval).sum() / n_box
+            d1 = box_deltas.reshape(-1, c.num_classes, 4)[:, 1]
+            reg = smooth_l1(d1, reg_t.reshape(-1, 4), beta=1.0 / 9).sum(-1)
+            fg_flat = ((flat_labels > 0) & (flat_sval > 0)).float()
+            loss_reg = (reg * fg_flat).sum() / n_box
 
-        # Proposals from detached scores (torchvision detaches them).
-        pboxes, pvalid = image_proposals(
-            c, [o.detach() for o in objs], [d.detach() for d in dlts],
-            anchors, self.img_hw)
-        sampled, sval, labels, matched_gt, reg_t, fgv = box_targets(
-            c, pboxes, pvalid, gt_boxes, gt_valid, noise["box_fg"],
-            noise["box_bg"])
-        ms = c.mask_slots
-        mb, mgt = sampled[:, :ms], matched_gt[:, :ms]
-        src = take_rows(gt_mask28.reshape(gt_mask28.shape[:2] + (-1,)), mgt)
-        mtargets = reproject_mask28(
-            src.reshape(src.shape[:2] + gt_mask28.shape[2:]),
-            take_rows(gt_boxes, mgt), mb)
-        mvalid = fgv[:, :ms]
-        if record is not None:
-            record.update(rpn_rows=rows, rpn_valid=rval, proposals=pboxes,
-                          proposal_valid=pvalid, box_rows=sampled,
-                          box_valid=sval)
-
-        box_rois = self.ms_roi(feats, sampled, c.roi_size)
-        mrois = self.ms_roi(feats, mb, c.mask_roi_size)
-
-        # RPN losses, normalized by the sampled count like torchvision.
-        count = local_count if self.data_axis is None else self.data_axis.count
-        rval_f = rval.float()
-        n_sampled = count(rval_f.sum()).clamp(min=1.0)
-        loss_obj = (bce_with_logits(obj_s, rlabels) * rval_f).sum() \
-            / n_sampled
-        reg = smooth_l1(rpn_reg_p.reshape(-1, 4), rpn_reg_t.reshape(-1, 4),
-                        beta=1.0 / 9).sum(-1)
-        loss_rpn_reg = (reg * fv.reshape(-1).float()).sum() / n_sampled
-
-        # Box head over all images' sampled ROIs.
-        h = self.box_head(box_rois.reshape((-1,) + box_rois.shape[2:]))
-        cls_logits, box_deltas = self.box_predictor(h)
-        flat_labels = labels.reshape(-1)
-        flat_sval = sval.reshape(-1).float()
-        n_box = count(flat_sval.sum()).clamp(min=1.0)
-        logp = F.log_softmax(cls_logits, dim=-1)
-        ce = -torch.gather(logp, 1, flat_labels[:, None])[:, 0]
-        loss_cls = (ce * flat_sval).sum() / n_box
-        d1 = box_deltas.reshape(-1, c.num_classes, 4)[:, 1]
-        reg = smooth_l1(d1, reg_t.reshape(-1, 4), beta=1.0 / 9).sum(-1)
-        fg_flat = ((flat_labels > 0) & (flat_sval > 0)).float()
-        loss_reg = (reg * fg_flat).sum() / n_box
-
-        # Mask loss: BCE on the class-1 logits over the fg slots.
-        mlogits = self.mask_head(mrois.reshape((-1,) + mrois.shape[2:]))
-        m = c.mask_size
-        per_roi = bce_with_logits(mlogits[..., 1].reshape(-1, m, m),
-                                  mtargets.reshape(-1, m, m)).mean(dim=(1, 2))
-        mv = mvalid.reshape(-1).float()
-        loss_mask = (per_roi * mv).sum() / count(mv.sum()).clamp(min=1.0)
+            # Mask loss: BCE on the class-1 logits over the fg slots.
+            mlogits = self.mask_head(mrois.reshape((-1,) + mrois.shape[2:]))
+            m = c.mask_size
+            per_roi = bce_with_logits(
+                mlogits[..., 1].reshape(-1, m, m),
+                mtargets.reshape(-1, m, m)).mean(dim=(1, 2))
+            mv = mvalid.reshape(-1).float()
+            loss_mask = (per_roi * mv).sum() / count(mv.sum()).clamp(min=1.0)
         return {"loss_objectness": loss_obj,
                 "loss_rpn_box_reg": loss_rpn_reg,
                 "loss_classifier": loss_cls,
@@ -507,44 +513,51 @@ class TransferMaskRCNN(nn.Module):
         max_detections slots per image, boxes in tile coordinates."""
         c = self.cfg
         b = images.shape[0]
-        feats = self.features(images)
-        objs, dlts = self.rpn_outputs(feats)
-        pboxes, pvalid = image_proposals(c, objs, dlts,
-                                         self.anchors(images.device),
-                                         self.img_hw)
-        rois = self.ms_roi(feats, pboxes, c.roi_size)
-        h = self.box_head(rois.reshape((-1,) + rois.shape[2:]))
-        cls_logits, box_deltas = self.box_predictor(h)
-        p = pboxes.shape[1]
-        scores = torch.softmax(cls_logits.reshape(b, p, -1), dim=-1)[..., 1]
-        d1 = box_deltas.reshape(b, p, c.num_classes, 4)[:, :, 1]
-        refined = clip_boxes(_decode_weighted(d1, pboxes, c.box_reg_weights),
-                             self.img_hw)
-        keep = (scores > c.score_thresh) & pvalid & \
-            small_box_mask(refined, c.det_min_size)
-        nms = nms_iterated if c.rpn_nms_mode == "sweep" else nms_fixed
-        idx, det_valid = nms(refined, scores, c.det_nms_thresh,
-                             c.max_detections, valid=keep)
-        det_boxes = take_rows(refined, idx)
-        det_scores = torch.gather(scores, 1, idx)
+        with span("livecell.features"):
+            feats = self.features(images)
+        with span("livecell.rpn"):
+            objs, dlts = self.rpn_outputs(feats)
+        with span("livecell.proposals"):
+            pboxes, pvalid = image_proposals(c, objs, dlts,
+                                             self.anchors(images.device),
+                                             self.img_hw)
+        with span("livecell.heads"):
+            rois = self.ms_roi(feats, pboxes, c.roi_size)
+            h = self.box_head(rois.reshape((-1,) + rois.shape[2:]))
+            cls_logits, box_deltas = self.box_predictor(h)
+            p = pboxes.shape[1]
+            scores = torch.softmax(cls_logits.reshape(b, p, -1),
+                                   dim=-1)[..., 1]
+            d1 = box_deltas.reshape(b, p, c.num_classes, 4)[:, :, 1]
+            refined = clip_boxes(
+                _decode_weighted(d1, pboxes, c.box_reg_weights), self.img_hw)
+            keep = (scores > c.score_thresh) & pvalid & \
+                small_box_mask(refined, c.det_min_size)
+            nms = nms_iterated if c.rpn_nms_mode == "sweep" else nms_fixed
+            idx, det_valid = nms(refined, scores, c.det_nms_thresh,
+                                 c.max_detections, valid=keep)
+            det_boxes = take_rows(refined, idx)
+            det_scores = torch.gather(scores, 1, idx)
 
-        # Mask branch on the final boxes (torchvision's eval path).
-        mrois = self.ms_roi(feats, det_boxes, c.mask_roi_size)
-        mlogits = self.mask_head(mrois.reshape((-1,) + mrois.shape[2:]))
-        m = c.mask_size
-        mask_probs = torch.sigmoid(
-            mlogits[..., 1].reshape(b, c.max_detections, m, m))
+            # Mask branch on the final boxes (torchvision's eval path).
+            mrois = self.ms_roi(feats, det_boxes, c.mask_roi_size)
+            mlogits = self.mask_head(mrois.reshape((-1,) + mrois.shape[2:]))
+            m = c.mask_size
+            mask_probs = torch.sigmoid(
+                mlogits[..., 1].reshape(b, c.max_detections, m, m))
 
-        # Back to tile coordinates (GeneralizedRCNNTransform.postprocess).
-        sy, sx = self.scale
-        unscale = constant((1 / sx, 1 / sy, 1 / sx, 1 / sy), images.device)
-        det_boxes = clip_boxes(det_boxes * unscale,
-                               (c.tile_height, c.tile_width))
-        return Detections(
-            boxes=det_boxes, scores=det_scores,
-            labels=torch.ones((b, c.max_detections), dtype=torch.int32,
-                              device=images.device),
-            valid=det_valid, mask_probs=mask_probs)
+            # Back to tile coordinates
+            # (GeneralizedRCNNTransform.postprocess).
+            sy, sx = self.scale
+            unscale = constant((1 / sx, 1 / sy, 1 / sx, 1 / sy),
+                               images.device)
+            det_boxes = clip_boxes(det_boxes * unscale,
+                                   (c.tile_height, c.tile_width))
+            return Detections(
+                boxes=det_boxes, scores=det_scores,
+                labels=torch.ones((b, c.max_detections), dtype=torch.int32,
+                                  device=images.device),
+                valid=det_valid, mask_probs=mask_probs)
 
     def forward(self, images: torch.Tensor) -> Detections:
         return self.inference_forward(images)

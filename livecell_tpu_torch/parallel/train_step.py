@@ -22,6 +22,7 @@ divides by), and the gradient norm and the metrics are the global ones.
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -30,6 +31,7 @@ from torch import nn
 
 from livecell_tpu_torch.device import resolve_device
 from livecell_tpu_torch.parallel.mesh import param_spec, shard_model
+from livecell_tpu_torch.utils.profiling import span
 
 
 def normalize_batch(images: torch.Tensor,
@@ -149,25 +151,35 @@ def make_step_fn(model: nn.Module, opt: torch.optim.Optimizer,
 
     With a mesh, images and targets are this rank's rows of the global
     batch and `noise`, when given, the global batch's; the metrics are
-    the global batch's on every rank."""
+    the global batch's on every rank.
+
+    Each call runs under the span livecell.step (utils/profiling.span,
+    recorded while a profiler records) with the step function's call
+    number, the model's stage spans inside it, then livecell.backward
+    and livecell.update (gradient norm and optimizer)."""
     if mesh is not None:
         return _make_mesh_step(model, opt, mesh)
     params = list(model.parameters())
+    count = itertools.count()
 
     def step(images, targets, noise=None, generator=None, record=None):
-        images, targets = normalize_batch(images, targets)
-        model.train()
-        for p in params:
-            p.grad = None
-        losses = model.train_forward(images, targets, noise=noise,
-                                     generator=generator, record=record)
-        total = sum(losses.values())
-        total.backward()
-        # optax.global_norm's sum of squares: torch.linalg.vector_norm on
-        # the CPU sums a large f32 tensor with ~4e-4 relative error.
-        gnorm = torch.stack([(p.grad * p.grad).sum() for p in params
-                             if p.grad is not None]).sum().sqrt()
-        apply_update(opt)
+        with span("livecell.step", next(count)):
+            images, targets = normalize_batch(images, targets)
+            model.train()
+            for p in params:
+                p.grad = None
+            losses = model.train_forward(images, targets, noise=noise,
+                                         generator=generator, record=record)
+            total = sum(losses.values())
+            with span("livecell.backward"):
+                total.backward()
+            with span("livecell.update"):
+                # optax.global_norm's sum of squares:
+                # torch.linalg.vector_norm on the CPU sums a large f32
+                # tensor with ~4e-4 relative error.
+                gnorm = torch.stack([(p.grad * p.grad).sum() for p in params
+                                     if p.grad is not None]).sum().sqrt()
+                apply_update(opt)
         return {"total_loss": total.detach(), "grad_norm": gnorm,
                 **{k: v.detach() for k, v in losses.items()}}
 
@@ -182,33 +194,39 @@ def _make_mesh_step(model: nn.Module, opt: torch.optim.Optimizer,
     sharded = [p for n, p in model.named_parameters()
                if mesh.model_size > 1 and "model" in param_spec(n)]
     sharded_ids = {id(p) for p in sharded}
+    count = itertools.count()
 
     def step(images, targets, noise=None, generator=None, record=None):
-        images, targets = normalize_batch(images, targets)
-        model.train()
-        for p in params:
-            p.grad = None
-        noise = _global_rows(model, mesh, images.shape[0], images.device,
-                             generator, noise)
-        losses = forward(images, targets, noise=noise, record=record)
-        total = sum(losses.values())
-        # DDP averages the data ranks' gradients; each rank's losses are
-        # its share of the global batch's, whose gradient is their sum.
-        (total * mesh.data_size).backward()
-        # The squares of a sharded parameter's slices summed over the
-        # model axis, a replicated parameter's counted once.
-        sq = [(p.grad * p.grad).sum() for p in params
-              if p.grad is not None and id(p) not in sharded_ids]
-        if sharded:
-            part = torch.stack([(p.grad * p.grad).sum() for p in sharded
-                                if p.grad is not None]).sum()
-            dist.all_reduce(part, group=mesh.model_group)
-            sq.append(part)
-        gnorm = torch.stack(sq).sum().sqrt()
-        apply_update(opt)
-        names = list(losses)
-        glob = torch.stack([losses[k].detach() for k in names])
-        dist.all_reduce(glob, group=mesh.data.group)
+        with span("livecell.step", next(count)):
+            images, targets = normalize_batch(images, targets)
+            model.train()
+            for p in params:
+                p.grad = None
+            noise = _global_rows(model, mesh, images.shape[0],
+                                 images.device, generator, noise)
+            losses = forward(images, targets, noise=noise, record=record)
+            total = sum(losses.values())
+            with span("livecell.backward"):
+                # DDP averages the data ranks' gradients; each rank's
+                # losses are its share of the global batch's, whose
+                # gradient is their sum.
+                (total * mesh.data_size).backward()
+            with span("livecell.update"):
+                # The squares of a sharded parameter's slices summed over
+                # the model axis, a replicated parameter's counted once.
+                sq = [(p.grad * p.grad).sum() for p in params
+                      if p.grad is not None and id(p) not in sharded_ids]
+                if sharded:
+                    part = torch.stack([(p.grad * p.grad).sum()
+                                        for p in sharded
+                                        if p.grad is not None]).sum()
+                    dist.all_reduce(part, group=mesh.model_group)
+                    sq.append(part)
+                gnorm = torch.stack(sq).sum().sqrt()
+                apply_update(opt)
+            names = list(losses)
+            glob = torch.stack([losses[k].detach() for k in names])
+            dist.all_reduce(glob, group=mesh.data.group)
         losses = {k: glob[i] for i, k in enumerate(names)}
         return {"total_loss": sum(losses.values()), "grad_norm": gnorm,
                 **losses}

@@ -14,8 +14,10 @@ precomputed into static per-tile "newly claimed mini-tile" masks:
 
 from __future__ import annotations
 
+import itertools
 import os
 import re
+import time
 from collections import defaultdict
 from typing import Dict, List, NamedTuple
 
@@ -29,6 +31,7 @@ from livecell_tpu_torch.data.png import read_png
 from livecell_tpu_torch.device import resolve_device
 from livecell_tpu_torch.ops.mask_ops import paste_masks
 from livecell_tpu_torch.ops.proposals import top_k_stable
+from livecell_tpu_torch.utils.profiling import span
 
 TILE_RE = re.compile(r"^(.+)_tile_(\d{2})\.png$")
 
@@ -111,9 +114,12 @@ def make_frame_predictor(model, tile_cfg: TileConfig,
     (`input_tile`) and its masks are pasted on that grid.
 
     Returns run(tiles_u8 [T, th, tw, 3] numpy) -> StitchedDetections,
-    with run.dispatch (enqueue a frame, returns device tensors without
+    with run.dispatch (enqueue a frame, returns a handle without
     waiting), run.fetch (wait and unpack), run.device_fn (the device
-    computation on a uint8 tile tensor) and run.n_pad_tiles.
+    computation on a uint8 tile tensor), run.n_pad_tiles and run.stats:
+    the frames fetched and the host seconds spent in `dispatch`
+    (dispatch_s), blocked in `fetch` until the card is done (wait_s)
+    and copying back and unpacking (unpack_s), counted always.
 
     With `mesh` (parallel/mesh.py; the model replicated on every rank)
     the frame's tiles are split over the data axis, padded to a multiple
@@ -150,45 +156,47 @@ def make_frame_predictor(model, tile_cfg: TileConfig,
 
     @torch.inference_mode()
     def predict(tiles_u8: torch.Tensor):
-        images = tiles_u8[rows].float() / 255.0
-        images = F.pad(images, (0, 0, 0, iw - tw, 0, ih - th))
+        with span("livecell.stage_in"):
+            images = tiles_u8[rows].float() / 255.0
+            images = F.pad(images, (0, 0, 0, iw - tw, 0, ih - th))
         det = model.inference_forward(images)
 
-        masks = paste_masks(det.mask_probs, det.boxes, (ih, iw),
-                            valid=det.valid)[:, :, :th, :tw] > 0
-        area = masks.sum(dim=(2, 3)).float()            # [T, D]
-        inside = (masks & regions[rows, None]).sum(dim=(2, 3)).float()
-        frac = torch.where(area > 0, inside / area.clamp(min=1.0),
-                           torch.zeros_like(area))
-        keep = det.valid & (det.scores > score_threshold) & \
-            (frac > mask_threshold)
-        boxes, scores = det.boxes, det.scores
-        if mesh is not None:
-            keep, boxes, scores = (mesh.data.gather(t)
-                                   for t in (keep, boxes, scores))
+        with span("livecell.stitch"):
+            masks = paste_masks(det.mask_probs, det.boxes, (ih, iw),
+                                valid=det.valid)[:, :, :th, :tw] > 0
+            area = masks.sum(dim=(2, 3)).float()            # [T, D]
+            inside = (masks & regions[rows, None]).sum(dim=(2, 3)).float()
+            frac = torch.where(area > 0, inside / area.clamp(min=1.0),
+                               torch.zeros_like(area))
+            keep = det.valid & (det.scores > score_threshold) & \
+                (frac > mask_threshold)
+            boxes, scores = det.boxes, det.scores
+            if mesh is not None:
+                keep, boxes, scores = (mesh.data.gather(t)
+                                       for t in (keep, boxes, scores))
 
-        # Global compaction to max_frame_dets slots + bit-packed masks
-        # (8 px per byte), so little crosses back to the host.
-        t_total, d = keep.shape
-        pri = torch.where(keep, scores + 1.0,
-                          torch.zeros_like(scores)).reshape(-1)
-        top, idx = top_k_stable(pri, max_frame_dets)
-        flat = masks.reshape(-1, th, tw)
-        if mesh is None:
-            sel_masks = flat[idx]
-        else:
-            # The slots this rank's tiles hold; the others stay zero.
-            local = idx - rows.start * d
-            own = (local >= 0) & (local < flat.shape[0])
-            sel_masks = flat[local.clamp(0, flat.shape[0] - 1)] \
-                & own[:, None, None]
-        packed = (F.pad(sel_masks, (0, tw_pad - tw))
-                  .reshape(max_frame_dets, th, tw_pad // 8, 8)
-                  .to(torch.uint8) * bits).sum(dim=-1).to(torch.uint8)
-        if mesh is not None:
-            dist.all_reduce(packed, group=mesh.data.group)
-        return (boxes.reshape(-1, 4)[idx], scores.reshape(-1)[idx],
-                packed, idx, top > 0.5)
+            # Global compaction to max_frame_dets slots + bit-packed
+            # masks (8 px per byte), so little crosses back to the host.
+            t_total, d = keep.shape
+            pri = torch.where(keep, scores + 1.0,
+                              torch.zeros_like(scores)).reshape(-1)
+            top, idx = top_k_stable(pri, max_frame_dets)
+            flat = masks.reshape(-1, th, tw)
+            if mesh is None:
+                sel_masks = flat[idx]
+            else:
+                # The slots this rank's tiles hold; the others stay zero.
+                local = idx - rows.start * d
+                own = (local >= 0) & (local < flat.shape[0])
+                sel_masks = flat[local.clamp(0, flat.shape[0] - 1)] \
+                    & own[:, None, None]
+            packed = (F.pad(sel_masks, (0, tw_pad - tw))
+                      .reshape(max_frame_dets, th, tw_pad // 8, 8)
+                      .to(torch.uint8) * bits).sum(dim=-1).to(torch.uint8)
+            if mesh is not None:
+                dist.all_reduce(packed, group=mesh.data.group)
+            return (boxes.reshape(-1, 4)[idx], scores.reshape(-1)[idx],
+                    packed, idx, top > 0.5)
 
     # A copy from pageable host memory waits for the card to finish the
     # work already queued (the previous frame), so dispatch could not
@@ -214,23 +222,55 @@ def make_frame_predictor(model, tile_cfg: TileConfig,
         staging.append((buf, copied))
         return out
 
+    requests = itertools.count()
+    stats = {"frames": 0, "dispatch_s": 0.0, "wait_s": 0.0,
+             "unpack_s": 0.0}
+
     def dispatch(tiles_u8: np.ndarray):
-        """Enqueue one frame; returns device tensors without waiting."""
-        if len(tiles_u8) < n_tiles:
-            tiles_u8 = np.concatenate(
-                [tiles_u8, np.zeros((n_tiles - len(tiles_u8), th, tw, 3),
-                                    np.uint8)])
-        return predict(to_device(tiles_u8))
+        """Enqueue one frame; returns a handle of device tensors without
+        waiting. The span livecell.frame opens here and closes in
+        `fetch`."""
+        t0 = time.perf_counter()
+        frame = span("livecell.frame", next(requests))
+        frame.__enter__()
+        try:
+            with span("livecell.stage_in"):
+                if len(tiles_u8) < n_tiles:
+                    tiles_u8 = np.concatenate(
+                        [tiles_u8, np.zeros(
+                            (n_tiles - len(tiles_u8), th, tw, 3), np.uint8)])
+                x = to_device(tiles_u8)
+            out = predict(x)
+        except BaseException:
+            frame.__exit__(None, None, None)
+            raise
+        stats["dispatch_s"] += time.perf_counter() - t0
+        return out, frame
 
     def fetch(handle) -> StitchedDetections:
-        """Wait for a dispatch() handle and unpack to host detections."""
-        boxes, scores, packed, idx, sel_valid = (
-            t.cpu().numpy() for t in handle)
-        masks = np.unpackbits(packed[sel_valid], axis=-1)[:, :, :tw] \
-            .astype(bool)
-        # idx is flat over [T, D], D the detection slot count.
-        t_ids = idx[sel_valid] // mcfg.max_detections
-        sel_off = offs[t_ids]
+        """Wait for a dispatch() handle and unpack to host detections.
+        The copy of its first tensor (the boxes, 4 KB) waits for the
+        card to finish the frame (the span livecell.wait); the other
+        copies and the unpacking follow (livecell.unpack)."""
+        out, frame = handle
+        t0 = time.perf_counter()
+        try:
+            with span("livecell.wait"):
+                boxes = out[0].cpu().numpy()
+            t1 = time.perf_counter()
+            with span("livecell.unpack"):
+                scores, packed, idx, sel_valid = (
+                    t.cpu().numpy() for t in out[1:])
+                masks = np.unpackbits(packed[sel_valid], axis=-1)[
+                    :, :, :tw].astype(bool)
+                # idx is flat over [T, D], D the detection slot count.
+                t_ids = idx[sel_valid] // mcfg.max_detections
+                sel_off = offs[t_ids]
+        finally:
+            frame.__exit__(None, None, None)
+        stats["frames"] += 1
+        stats["wait_s"] += t1 - t0
+        stats["unpack_s"] += time.perf_counter() - t1
         return StitchedDetections(
             boxes=boxes[sel_valid] + np.concatenate([sel_off, sel_off],
                                                     axis=1),
@@ -244,6 +284,7 @@ def make_frame_predictor(model, tile_cfg: TileConfig,
     run.n_pad_tiles = n_tiles
     run.dispatch = dispatch
     run.fetch = fetch
+    run.stats = stats
     return run
 
 

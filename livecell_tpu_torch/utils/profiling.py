@@ -1,16 +1,16 @@
 """Tracing and timing helpers (counterpart of
-livecell_tpu/utils/profiling.py: trace, time_fn, device_memory_stats,
-enable_nan_debug).
+livecell_tpu/utils/profiling.py: trace, time_fn, enable_nan_debug).
 
   * `trace(log_dir, with_stack=False)`: a torch.profiler session over
     the CPU and, with a card, CUDA activities, exported as a Chrome trace
     into `log_dir` (with the Python frames of each op when asked);
+  * `span(name, *args)`: a named range of the hot path, recorded only
+    while a profiler records;
   * `time_fn`: steady-state timing, each call ended by a synchronize on
     the card (PyTorch returns before the card finishes);
   * `per_call_ms`: runs of calls back to back, timed by CUDA events
     on a card;
   * `sync`: wait for the card;
-  * `device_memory_stats`: the caching allocator's counters in MiB;
   * `enable_nan_debug`: autograd anomaly detection, which fails at the
     backward op that produced a NaN.
 """
@@ -24,6 +24,47 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+
+
+# The spans of the hot path, from the outside in. A training step:
+# livecell.step > livecell.{features, rpn, proposals, heads} (the
+# model's forward), livecell.backward, livecell.update (gradient norm
+# and optimizer); an epoch ends in livecell.fetch_metrics. A frame of
+# the frame predictor: livecell.frame > livecell.stage_in, the model's
+# stages, livecell.stitch (in `dispatch`), livecell.wait,
+# livecell.unpack (in `fetch`). Inference opens the same model stages.
+# No span opens inside a loop over levels, sweeps or instances.
+
+_NULL = contextlib.nullcontext()
+
+
+class _Span:
+    """A record_function range whose inputs are `args` (a profiler that
+    records shapes shows them as the range's "Concrete Inputs")."""
+
+    __slots__ = ("name", "args", "handle")
+
+    def __init__(self, name: str, args: tuple):
+        self.name, self.args = name, args
+
+    def __enter__(self):
+        self.handle = torch.autograd._record_function_with_args_enter(
+            self.name, *self.args)
+        return self
+
+    def __exit__(self, *exc):
+        torch.autograd._record_function_with_args_exit(self.handle)
+
+
+def span(name: str, *args):
+    """A context for the range `name` of the hot path: a record_function
+    range (in the Chrome trace, on the clock of the device events) while
+    a profiler records, else one shared null context, so an untraced
+    span costs a check of the profiler's state. `args` are scalars (a
+    step's or a request's number) recorded as the range's inputs."""
+    if torch.autograd._profiler_enabled():
+        return _Span(name, args)
+    return _NULL
 
 
 # On the H100 a profiler session now and then recorded no device event
@@ -128,16 +169,6 @@ def per_call_ms(fn: Callable[[], object], device, calls: int = 30,
         sync(device)
         times = [s.elapsed_time(e) for s, e in times]
     return float(np.median(times)) / calls
-
-
-def device_memory_stats() -> Dict[str, float]:
-    """torch.cuda.memory_stats() of the current card with every number
-    in MiB (counts too, as the JAX package divides every value), or {}
-    without a card."""
-    if not torch.cuda.is_available():
-        return {}
-    return {k: v / (1024 ** 2) for k, v in torch.cuda.memory_stats().items()
-            if isinstance(v, (int, float))}
 
 
 def enable_nan_debug(enable: bool = True):
