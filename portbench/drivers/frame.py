@@ -32,7 +32,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from portbench import cuda, draws, trace, weights, work
+from portbench import cuda, draws, stages, trace, weights, work
 from portbench import spec as spec_mod
 from portbench.reference import lowp
 from portbench.reference.stitch import stitch
@@ -200,20 +200,23 @@ def run(spec: Dict, args, t_start: float, device="cuda") -> Dict:
     sample = set(np.random.default_rng(s.seeds["order"] + 1).choice(
         t["sample_from"], t["check_frames"], replace=False).tolist())
     lat, disp = [], []
+
+    def request() -> int:
+        nonlocal failed
+        i = len(lat)
+        try:
+            dt, dd, _ = s.request(i, capture=i in sample)
+        except RuntimeError:
+            failed += 1
+            dt = dd = float("nan")
+        lat.append(dt)
+        disp.append(dd)
+        return 1
+
     with s.observed():
-        t0 = time.perf_counter()
-        while True:
-            i = len(lat)
-            try:
-                dt, dd, _ = s.request(i, capture=i in sample)
-            except RuntimeError:
-                failed += 1
-                dt = dd = float("nan")
-            lat.append(dt)
-            disp.append(dd)
-            elapsed = time.perf_counter() - t0
-            if elapsed >= args.seconds:
-                break
+        win = stages.window(args.seconds, request,
+                            lambda: dict(s.run.stats))
+    elapsed = win["seconds"]
     ok = [x for x in lat if x == x]
     out = {"attempted": len(lat) + t["warmup_frames"], "failed": failed,
            "end_to_end": {
@@ -224,7 +227,7 @@ def run(spec: Dict, args, t_start: float, device="cuda") -> Dict:
                    else max(ok, default=float("nan")))},
            "window": {"units": len(ok), "seconds": elapsed}}
     if args.trace:
-        out["ctx"] = traced(s, t, len(ok), elapsed, disp)
+        out["ctx"] = traced(s, t, dict(win, units=len(ok)), disp)
     out["memory_peak_bytes"] = torch.cuda.max_memory_allocated(dev) \
         if dev.type == "cuda" else 0
     s.free()
@@ -244,8 +247,11 @@ def judge(s: Serve) -> Dict[str, float]:
     return out
 
 
-def traced(s: Serve, t: Dict, frames: int, elapsed: float,
-           disp: List[float]) -> Dict:
+def traced(s: Serve, t: Dict, win: Dict, disp: List[float]) -> Dict:
+    """The traced requests, read by trace.read and by span
+    (stages.read), the FLOP count of one more, and the window `win` (its
+    answered frames as `units`) with the predictor's `run.stats` over
+    it."""
     log = trace.OpLog()
     n = t["trace_frames"]
     path = os.path.join(tempfile.gettempdir(),
@@ -266,11 +272,13 @@ def traced(s: Serve, t: Dict, frames: int, elapsed: float,
             log.counter = None
         log.calls = calls
         summary = trace.read(path, trace.op_work(log))
+        by_span = stages.read(path)
     finally:
         if os.path.exists(path):
             os.remove(path)
     return {"unit": "frame", "units": n, "trace": summary,
-            "flops_per_unit": counter.total, "window_units": frames,
-            "window_s": elapsed,
+            "flops_per_unit": counter.total, "window_units": win["units"],
+            "window_s": win["seconds"],
             "peak": work.peak_flops(torch.cuda.get_device_name(0)),
-            "spans": {"dispatch_s": [x for x in disp if x == x]}}
+            "spans": {"dispatch_s": [x for x in disp if x == x]},
+            "stages": by_span, "counters": win}

@@ -9,9 +9,11 @@ and drives the same objects through the first epoch: its first steps
 first gradient as the optimizer's state after step 1 holds it, the
 parameters' change after the last of them), the rest warm the epoch's
 shapes. The timed window then runs whole epochs, each a new order of
-the split, and ends at the fetch of its last epoch's metrics. After the
-window (and the traced part, with --trace 1) the program's state is
-freed and the reference follows the checked steps in float32."""
+the split, and ends at the fetch of its last epoch's metrics;
+`train_epoch`'s counters (steps, enqueue_s, wait_s) are read over it.
+After the window (and the traced part, with --trace 1) the program's
+state is freed and the reference follows the checked steps in
+float32."""
 
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from portbench import compare, cuda, draws, trace, weights, work
+from portbench import compare, cuda, draws, stages, trace, weights, work
 from portbench import spec as spec_mod
 from portbench.reference import lowp
 from portbench.reference import train as ref_train
@@ -111,9 +113,12 @@ class Run:
         self.noise_state = self.gen.get_state()
         self.free()
 
-    def train(self, rows: np.ndarray) -> Dict[str, np.ndarray]:
+    def train(self, rows: np.ndarray, stats=None) -> Dict[str, np.ndarray]:
+        """One `train_epoch` over `rows`; `stats`, where given, takes its
+        counters (steps, enqueue_s, wait_s)."""
         from livecell_tpu_torch.data.device_data import train_epoch
-        return train_epoch(self.model, self.opt, self.pool, rows, self.gen)
+        return train_epoch(self.model, self.opt, self.pool, rows, self.gen,
+                           stats=stats)
 
     def check_steps(self, rows: np.ndarray) -> Dict:
         """The first steps, recorded: {"loss", "grad", "delta"} by leaf
@@ -241,22 +246,24 @@ def run(spec: Dict, args, t_start: float, device="cuda") -> Dict:
     cuda.sync(dev)
     setup_s = time.time() - t_start
 
-    steps = failed = 0
-    t0 = time.perf_counter()
-    while True:
-        m = r.train(r.epoch())
-        steps += len(m["total_loss"])
+    failed = 0
+    stats: Dict[str, float] = {}
+
+    def epoch() -> int:
+        nonlocal failed
+        m = r.train(r.epoch(), stats)
         failed += int((~np.isfinite(m["total_loss"])).sum())
-        elapsed = time.perf_counter() - t0
-        if elapsed >= args.seconds:
-            break
+        return len(m["total_loss"])
+
+    win = stages.window(args.seconds, epoch, lambda: dict(stats))
+    steps, elapsed = win["units"], win["seconds"]
 
     out = {"attempted": steps, "failed": failed,
            "end_to_end": {"setup_s": setup_s,
                           "train_img_per_s": steps * r.batch / elapsed},
            "window": {"units": steps, "seconds": elapsed}}
     if args.trace:
-        out["ctx"] = traced(r, t, steps, elapsed)
+        out["ctx"] = traced(r, t, win)
     out["memory_peak_bytes"] = torch.cuda.max_memory_allocated(dev) \
         if dev.type == "cuda" else 0
     r.free()
@@ -264,8 +271,10 @@ def run(spec: Dict, args, t_start: float, device="cuda") -> Dict:
     return out
 
 
-def traced(r: Run, t: Dict, steps: int, elapsed: float) -> Dict:
-    """The traced steps and the FLOP count of one more step."""
+def traced(r: Run, t: Dict, win: Dict) -> Dict:
+    """The traced steps, read by trace.read and by span (stages.read),
+    the FLOP count of one more step, and the window `win` with
+    `train_epoch`'s counters over it."""
     log = trace.OpLog()
     n = t["trace_steps"]
     rows = r.epoch()[:n]
@@ -282,11 +291,12 @@ def traced(r: Run, t: Dict, steps: int, elapsed: float) -> Dict:
             log.counter = None
         log.calls = calls
         summary = trace.read(path, trace.op_work(log))
+        by_span = stages.read(path)
     finally:
         if os.path.exists(path):
             os.remove(path)
     return {"unit": "step", "units": n, "trace": summary,
-            "flops_per_unit": counter.total, "window_units": steps,
-            "window_s": elapsed,
+            "flops_per_unit": counter.total, "window_units": win["units"],
+            "window_s": win["seconds"],
             "peak": work.peak_flops(torch.cuda.get_device_name(0)),
-            "spans": {}}
+            "stages": by_span, "counters": win}

@@ -1,0 +1,9 @@
+"""Device milliseconds a traced step in the program's span
+`livecell.proposals` (proposal decoding, NMS, box sampling and targets),
+the backward nodes of its forward ops charged to it (stages.read)."""
+
+from portbench.readers import stage_ms
+
+
+def read(ctx):
+    return stage_ms(ctx, "step", "proposals")

@@ -64,11 +64,12 @@ def seed_streams(seed: int, names: Sequence[str]) -> Dict[str, int]:
 
 def load_module(folder: str, name: str) -> ModuleType:
     """portbench/<folder>/<name>.py, imported by its path (a name may hold
-    dots); raises FileNotFoundError where there is no such file."""
+    dots, a folder slashes); raises FileNotFoundError where there is no
+    such file."""
     path = HERE / folder / f"{name}.py"
     if not path.exists():
-        raise FileNotFoundError(f"no {path.relative_to(REPO)}")
-    key = f"portbench_{folder}_" + re.sub(r"\W", "_", name)
+        raise FileNotFoundError(f"no {folder}/{name}.py under {HERE}")
+    key = "portbench_" + re.sub(r"\W", "_", f"{folder}_{name}")
     mod = importlib.util.spec_from_file_location(key, path)
     out = importlib.util.module_from_spec(mod)
     mod.loader.exec_module(out)

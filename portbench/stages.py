@@ -23,6 +23,7 @@ without them). Otherwise, each a unit (`livecell.step` or
   self_ms     the same less the spans directly inside it;
   syncs       host-blocking CUDA calls (SYNC_CALLS), by the innermost
               span open when they were made; `sync_calls` by name;
+              `unit_syncs` those made while a unit's span was open;
   idle_ms     the card's idle gaps in the traced window (as trace.read
               takes it), by the innermost span open at each gap's
               middle; `idle_calls` by the CUDA call running then;
@@ -51,6 +52,7 @@ import collections
 import json
 import os
 import sys
+import time
 from typing import Dict, List, Optional
 
 SPAN = "livecell."
@@ -215,10 +217,13 @@ def read(path: str) -> Dict:
         launches[name] += e.get("cat") == "kernel"
 
     syncs, sync_calls = collections.Counter(), collections.Counter()
+    units = _Open([e for e in spans if e["name"] == unit_name])
+    unit_syncs = 0
     for e in t.calls:
         if e["name"] in SYNC_CALLS and e["ts"] >= t.start:
             syncs[t.open.name_at(e["ts"])] += 1
             sync_calls[e["name"]] += 1
+            unit_syncs += units.at(e["ts"]) is not None
 
     # The card's idle gaps in the traced window, as trace.read takes it.
     busy = _busy(dev)
@@ -257,6 +262,7 @@ def read(path: str) -> Dict:
             "self_ms": per_unit(_self_us(spans)),
             "syncs": per_unit(syncs, 1.0),
             "sync_calls": per_unit(sync_calls, 1.0),
+            "unit_syncs": unit_syncs / n,
             "idle_ms": per_unit(idle_us),
             "idle_calls": per_unit(idle_calls),
             "idle_ops": dict(list(per_unit(idle_ops).items())[:12])}
@@ -267,12 +273,14 @@ def line(result: Dict) -> str:
     return "portbench: stages " + json.dumps(result)
 
 
-# -- the command -------------------------------------------------------------
-def _window(seconds: float, unit, counters) -> Dict:
-    """Units `unit()` back to back for `seconds`; each counter's change
-    over them (`counters()` a flat dict of numbers)."""
-    import time
-
+# -- the window, and the command ----------------------------------------------
+def window(seconds: float, unit, counters) -> Dict:
+    """Units `unit()` back to back for `seconds` (each call returns how
+    many units it ran): {"units", "seconds", "counters": each counter's
+    change over them} (`counters()` a flat dict of numbers, read before
+    the first unit and after the last, outside the timed seconds). The
+    drivers time their windows by it; their traced runs' readers take
+    it as ctx["counters"]."""
     before = counters()
     n, t0 = 0, time.perf_counter()
     while True:
@@ -286,8 +294,6 @@ def _window(seconds: float, unit, counters) -> Dict:
 
 
 def _train(spec: Dict, args, dev) -> tuple:
-    from livecell_tpu_torch.data.device_data import train_epoch
-
     from portbench.drivers import train
 
     r = train.Run(spec, args.seed, dev)
@@ -296,9 +302,7 @@ def _train(spec: Dict, args, dev) -> tuple:
     stats: Dict[str, float] = {}
 
     def epoch():
-        m = train_epoch(r.model, r.opt, r.pool, r.epoch(), r.gen,
-                        stats=stats)
-        return len(m["total_loss"])
+        return len(r.train(r.epoch(), stats)["total_loss"])
 
     rows = r.epoch()[:args.units]
     return epoch, (lambda: dict(stats)), (lambda: r.train(rows))
@@ -331,7 +335,6 @@ def _frame(spec: Dict, args, dev) -> tuple:
 def main(argv=None) -> int:
     import argparse
     import tempfile
-    import time
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -355,7 +358,7 @@ def main(argv=None) -> int:
     unit, counters, traced = {"train": _train, "frame": _frame}[
         spec["traffic"]["driver"]](spec, args, dev)
     cuda.sync(dev)
-    win = _window(args.seconds, unit, counters)
+    win = window(args.seconds, unit, counters)
     path = os.path.join(tempfile.gettempdir(),
                         f"portbench_stages_{os.getpid()}.json")
     wall = {}

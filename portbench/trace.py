@@ -4,37 +4,70 @@ Python stacks), read into the numbers the per-layer metrics take, and
 one more under the FLOP counter. The trace file is deleted once read.
 
 During the traced part only, the port's kernel ops named in
-metrics/ops.json are wrapped where the models look them up: each call
-runs under a `record_function` range of its own and records its
-arguments, so its device time (the kernels launched in its range, or in
-its backward node's) and the work its algorithm needs (work.py) are
-read whatever implements it."""
+metrics/ops.json and in each metrics/ops/*.json are wrapped where the
+models look them up: each call runs under a `record_function` range of
+its own and records its arguments, so its device time (the kernels
+launched in its range, or in its backward node's) and the work its
+algorithm needs (work.py, or a function in a file of its own that the op
+names) are read whatever implements it."""
 
 from __future__ import annotations
 
 import bisect
 import collections
 import contextlib
+import functools
 import importlib
 import json
-import os
 import re
 import time
+from pathlib import Path
 from typing import Callable, Dict, List
 
 import torch
 
-from portbench import work
+from portbench import spec, work
 
-HERE = os.path.dirname(os.path.abspath(__file__))
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 UNIT = "portbench.units"
 OP = "portbench.op:"
 
 
-def op_list() -> List[Dict]:
-    with open(os.path.join(HERE, "metrics", "ops.json")) as f:
-        return json.load(f)["ops"]
+def op_files() -> List[Path]:
+    """metrics/ops.json, then each metrics/ops/*.json in sorted order."""
+    metrics = spec.HERE / "metrics"
+    return [metrics / "ops.json"] + sorted((metrics / "ops").glob("*.json"))
+
+
+def op_list(files=None) -> List[Dict]:
+    """The ops of `files` (default: op_files()), each {"label", "work",
+    "at", optionally "backward"}."""
+    ops = []
+    for path in op_files() if files is None else files:
+        ops += json.loads(path.read_text())["ops"]
+    return ops
+
+
+@functools.lru_cache(maxsize=None)
+def work_rule(name: str) -> Callable:
+    """An op's work function: work.WORK[name], or, for a name
+    "<file under portbench/>.py:<function>", that function of that file
+    (loaded by its path, as spec.load_module loads a model's part)."""
+    if name in work.WORK:
+        return work.WORK[name]
+    file, _, fn = name.rpartition(":")
+    if not file.endswith(".py") or ".." in file.split("/"):
+        raise ValueError(f"work {name!r}: neither a key of work.WORK nor "
+                         f"'<file under portbench/>.py:<function>'")
+    folder, _, stem = file.removesuffix(".py").rpartition("/")
+    return getattr(spec.load_module(folder, stem), fn)
+
+
+def range_keys(op: Dict) -> List[str]:
+    """The trace ranges an op's device time is read from: its own and,
+    where it has one, its backward node's."""
+    return [OP + op["label"]] + ([op["backward"]] if op.get("backward")
+                                 else [])
 
 
 class OpLog:
@@ -73,7 +106,7 @@ def _detached(x):
 
 
 def _wrap(fn: Callable, op: Dict, log: OpLog) -> Callable:
-    label, rule = op["label"], work.WORK[op["work"]]
+    label, rule = op["label"], work_rule(op["work"])
 
     def run(*args, **kwargs):
         with torch.profiler.record_function(OP + label):
@@ -95,7 +128,7 @@ def op_work(log: OpLog) -> Dict[str, Dict[str, float]]:
     ops = {o["label"]: o for o in op_list()}
     least = collections.defaultdict(float)
     for label, args, kwargs, grads in log.calls:
-        w = work.WORK[ops[label]["work"]](args, kwargs)
+        w = work_rule(ops[label]["work"])(args, kwargs)
         least[OP + label] += work.least_seconds(*w["fwd"])
         if grads and ops[label].get("backward"):
             least[ops[label]["backward"]] += work.least_seconds(*w["bwd"])
@@ -241,6 +274,4 @@ def read(path: str, least: Dict[str, float]) -> Dict:
 
 def load_reader(name: str):
     """metrics/<name>.py's `read`."""
-    from portbench import spec
-
     return spec.load_module("metrics", name).read

@@ -2,11 +2,17 @@
 step or request, and the work the hand-written kernels' algorithms need.
 
 `FlopCounter` is a copy of the rules of livecell_tpu_torch/utils/flops.py
-(itself those of the JAX package): it runs a call under a
+(itself those of the JAX package), with a rule for fused attention that
+it lacks: it runs a call under a
 TorchDispatchMode and charges a matrix product 2 * batch * M * N * K, a
 convolution 2 * out_elems * fan_in * kspace, its input gradient 2 *
 in_elems * out_channels * kspace and its weight gradient as the forward,
-and every other aten op nothing. The kernels run through ctypes, out of
+a fused scaled-dot-product attention (the flash, efficient, cuDNN and
+CPU flash ops F.scaled_dot_product_attention reaches it as) 2 * batch *
+heads * Lq * Lk * (D + Dv), the heads the query's, and its backward twice
+that, as the same attention written as matrix products is charged (its
+bias add and softmax, like every other elementwise op, nothing), and
+every other aten op nothing. The kernels run through ctypes, out of
 its sight: the benchmark's op wrappers (trace.py) charge each call the
 operations of `WORK` below, forward and backward, instead of the dense
 charge utils/flops.py gives them.
@@ -67,10 +73,32 @@ def _conv_backward(args, out):
     return total
 
 
+def _sdpa(q, k, v) -> float:
+    """2 * batch * heads * Lq * Lk * (D + Dv): the two products of the
+    attention, the heads taken from the query (grouped key and value heads
+    count as the query's, as torch.utils.flop_counter counts them)."""
+    return 2.0 * math.prod(q.shape[:-2]) * q.shape[-2] * k.shape[-2] * (
+        q.shape[-1] + v.shape[-1])
+
+
 RULES = {aten.mm: _mm, aten.addmm: lambda a, o: _mm(a[1:], o),
          aten.bmm: _bmm, aten.baddbmm: lambda a, o: _bmm(a[1:], o),
          aten.convolution: _conv,
          aten.convolution_backward: _conv_backward}
+# The fused attention ops that F.scaled_dot_product_attention reaches the
+# mode as (those the installed torch has): query, key and value come first
+# in a forward, after the output's gradient in a backward, which is
+# charged twice the forward.
+for _name in ("_scaled_dot_product_flash_attention",
+              "_scaled_dot_product_efficient_attention",
+              "_scaled_dot_product_cudnn_attention",
+              "_scaled_dot_product_flash_attention_for_cpu",
+              "_scaled_dot_product_fused_attention_overrideable"):
+    if hasattr(aten, _name):
+        RULES[getattr(aten, _name)] = lambda a, o: _sdpa(*a[:3])
+    if hasattr(aten, _name + "_backward"):
+        RULES[getattr(aten, _name + "_backward")] = \
+            lambda a, o: 2.0 * _sdpa(*a[1:4])
 
 
 class FlopCounter(TorchDispatchMode):
